@@ -3,8 +3,9 @@
 The receiver has no learned weights.  What persists between calls is the
 static per-config tables, which the port rebuilds from the config, and the
 HARQ soft-buffers ``dict[int, (B, 3, K+4)]``.  The configs arrive as
-``dataclasses.asdict`` of the JAX package's ``PdschConfig`` / ``ChestConfig``
-(a nested ``cell`` dict included), so neither side imports the other.
+``dataclasses.asdict`` of the JAX package's ``PdschConfig`` /
+``PdschMimoConfig`` / ``ChestConfig`` (a nested ``cell`` dict included), so
+neither side imports the other.
 """
 
 from __future__ import annotations
@@ -16,18 +17,20 @@ from srsran_4g_tpu_torch import resolve_device
 from srsran_4g_tpu_torch.models.chest import ChestConfig
 from srsran_4g_tpu_torch.models.grid import CellConfig
 from srsran_4g_tpu_torch.models.pdsch import PdschConfig
+from srsran_4g_tpu_torch.models.pdsch_mimo import PdschMimoConfig
 
 
-def pdsch_config_from_dict(d: dict) -> PdschConfig | ChestConfig:
-    """Rebuild a ``PdschConfig`` (or a ``ChestConfig``, told apart by its
-    ``smooth_len`` key) from ``dataclasses.asdict`` of the JAX one."""
+def pdsch_config_from_dict(d: dict) -> PdschConfig | PdschMimoConfig | ChestConfig:
+    """Rebuild a ``PdschConfig`` (or a ``PdschMimoConfig``, told apart by its
+    ``tbs0`` key, or a ``ChestConfig``, by its ``smooth_len`` key) from
+    ``dataclasses.asdict`` of the JAX one."""
     fields = dict(d)
     fields["cell"] = CellConfig(**fields["cell"])
     if "smooth_len" in fields:
         return ChestConfig(**fields)
     if fields.get("prb_alloc") is not None:
         fields["prb_alloc"] = tuple(fields["prb_alloc"])
-    return PdschConfig(**fields)
+    return PdschMimoConfig(**fields) if "tbs0" in fields else PdschConfig(**fields)
 
 
 def softbuffers_from_numpy(d: dict, device: torch.device | str | None = None

@@ -40,48 +40,19 @@
 // load latency overlaps the previous step's arithmetic.
 //
 // Left for later work: keeping the stores in shared memory (or storing every
-// other alpha and recomputing the odd ones), the interleaved two-chain
-// dataflow of v7/v9 (alpha and beta advancing together, emission against
-// half-depth stores), a 16-bit packed-metric variant, and reading the
-// (K, B) LLRs directly instead of the 1.31x window expansion.
+// other alpha and recomputing the odd ones), a 16-bit packed-metric variant,
+// and reading the (K, B) LLRs directly instead of the 1.31x window
+// expansion.  The interleaved two-chain dataflow of v7/v8 is turbo_fused.cu.
 
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 
+#include "trellis.cuh"
+
 namespace {
 
-// RSC code g0 = 1 + D^2 + D^3 (feedback), g1 = 1 + D + D^3.  State
-// s = (r1 << 2) | (r2 << 1) | r3, r1 the newest register.  Every function
-// takes compile-time state indices in the unrolled loops below, so the
-// trellis resolves to register moves.
-__host__ __device__ constexpr int feedback(int s, int u) {
-  return u ^ ((s >> 1) & 1) ^ (s & 1);
-}
-__host__ __device__ constexpr int next_state(int s, int u) {
-  return (feedback(s, u) << 2) | (((s >> 2) & 1) << 1) | ((s >> 1) & 1);
-}
-__host__ __device__ constexpr int parity(int s, int u) {
-  return feedback(s, u) ^ ((s >> 2) & 1) ^ (s & 1);
-}
-// The two predecessors j = 0, 1 of state t, their input and parity bits.
-__host__ __device__ constexpr int pred_state(int t, int j) {
-  return (((t >> 1) & 1) << 2) | ((t & 1) << 1) | j;
-}
-__host__ __device__ constexpr int pred_input(int t, int j) {
-  return (t >> 2) ^ (t & 1) ^ j;
-}
-__host__ __device__ constexpr int pred_parity(int t, int j) {
-  return (t >> 2) ^ ((t >> 1) & 1) ^ j;
-}
-
-// m + u*gs + p*gp for 0/1 coefficients, adding in the plain version's order.
-__device__ __forceinline__ float branch(float m, int u, int p, float gs,
-                                        float gp) {
-  if (u) m += gs;
-  if (p) m += gp;
-  return m;
-}
+using namespace trellis;
 
 __device__ __forceinline__ void normalise(float x[8]) {
   const float m = fmaxf(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])),

@@ -1,7 +1,7 @@
 """PDSCH physical channel: encode (eNB side) and decode (UE side).
 
-Port counterpart of ``srsran_4g_tpu/models/pdsch.py``, single antenna port
-(transmit diversity for 2/4 ports comes with a later slice).
+Port counterpart of ``srsran_4g_tpu/models/pdsch.py``: single codeword, one
+antenna port, or TM2 transmit diversity (SFBC for 2 ports, SFBC-FSTD for 4).
 
   encode:  TB bits → DL-SCH (CRC/segment/turbo/rate-match) → scramble →
            modulate → RE-map into the resource grid (+ CRS insertion)
@@ -15,6 +15,7 @@ are host-built once per static config and cached as device tensors.
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,7 +25,7 @@ from srsran_4g_tpu_torch import resolve_device
 from srsran_4g_tpu_torch.models import chest as chest_mod
 from srsran_4g_tpu_torch.models import equalizer
 from srsran_4g_tpu_torch.models import grid as G
-from srsran_4g_tpu_torch.models import sch
+from srsran_4g_tpu_torch.models import mimo, sch
 from srsran_4g_tpu_torch.ops import modem, scrambling
 from srsran_4g_tpu_torch.ops.sequence import gold_sequence_np
 from srsran_4g_tpu_torch.utils.constants import BITS_PER_SYMBOL
@@ -82,43 +83,75 @@ def _on_device(x, device: torch.device | str | None) -> torch.Tensor:
     return torch.as_tensor(x, device=resolve_device(device))
 
 
-def _single_port(cfg: PdschConfig) -> None:
-    if cfg.cell.nof_ports != 1:
-        raise NotImplementedError(
-            "the port decodes single-port PDSCH; 2/4-port transmit diversity "
-            "comes with a later slice")
+def _diversity_ports(syms: torch.Tensor, n_ports: int) -> list[torch.Tensor]:
+    """TM2 transmit-diversity mapping of (B, n) symbols onto 2 ports (SFBC:
+    port0 [x0, x1], port1 [-x1*, x0*] per RE pair) or 4 ports (SFBC-FSTD:
+    Alamouti pairs on ports (0, 2) over REs (4i, 4i+1) and on (1, 3) over
+    (4i+2, 4i+3), reference precoding.c:1961), 1/sqrt(2) per active pair →
+    a (B, n) tensor per port."""
+    if n_ports == 2:
+        return list(mimo.sfbc_encode_2(syms))
+    if n_ports != 4:
+        raise ValueError(f"PDSCH maps onto 1, 2 or 4 ports, not {n_ports}")
+    b, n = syms.shape
+    sp = torch.cat([syms, syms.new_zeros((b, (-n) % 4))], dim=-1)
+    x0, x1, x2, x3 = (sp[:, i::4] for i in range(4))
+    zero = torch.zeros_like(x0)
+    pairs = ([x0, x1, zero, zero], [zero, zero, x2, x3],
+             [-x1.conj(), x0.conj(), zero, zero], [zero, zero, -x3.conj(), x2.conj()])
+    return [torch.stack(p, dim=-1).reshape(b, -1)[:, :n] / math.sqrt(2.0)
+            for p in pairs]
 
 
 def encode(cfg: PdschConfig, tb_bits: torch.Tensor | np.ndarray,
            device: torch.device | str | None = None) -> torch.Tensor:
-    """TB bits (B, tbs) → resource grid (B, nsymb, nre) complex64 with the
-    PDSCH REs set.  A tensor input stays on its device; other inputs go to
-    ``device`` (default CUDA)."""
-    _single_port(cfg)
+    """TB bits (B, tbs) → resource grid with the PDSCH REs set, complex64:
+    (B, nsymb, nre) for 1 port, (B, P, nsymb, nre) for 2/4 ports (TM2 SFBC /
+    SFBC-FSTD, TS 36.211 §6.3.4.3).  A tensor input stays on its device;
+    other inputs go to ``device`` (default CUDA)."""
     bits = _on_device(tb_bits, device)
     tab = _tables(cfg, bits.device)
     cw = sch.dlsch_encode(cfg.plan, bits)
     syms = modem.modulate(cfg.mod, scrambling.scramble_bits(cw, tab["seq"]))
     b = bits.shape[0]
-    flat = torch.zeros((b, cfg.cell.nsymb * cfg.cell.nre), dtype=torch.complex64,
-                       device=bits.device)
-    flat[:, tab["re_idx"]] = syms
-    return flat.reshape(b, cfg.cell.nsymb, cfg.cell.nre)
+    cell = cfg.cell
+    if cell.nof_ports == 1:
+        flat = torch.zeros((b, cell.nsymb * cell.nre), dtype=torch.complex64,
+                           device=bits.device)
+        flat[:, tab["re_idx"]] = syms
+        return flat.reshape(b, cell.nsymb, cell.nre)
+    ports = _diversity_ports(syms, cell.nof_ports)
+    flat = torch.zeros((b, cell.nof_ports, cell.nsymb * cell.nre),
+                       dtype=torch.complex64, device=bits.device)
+    for p, vals in enumerate(ports):
+        flat[:, p, tab["re_idx"]] = vals
+    return flat.reshape(b, cell.nof_ports, cell.nsymb, cell.nre)
 
 
 def add_crs(cfg: PdschConfig, grid_tx: torch.Tensor | np.ndarray, port: int = 0,
             device: torch.device | str | None = None) -> torch.Tensor:
-    """Insert cell reference signals into a single-port TX grid
-    (..., nsymb, nre).  A tensor input stays on its device and is not
-    modified; other inputs go to ``device`` (default CUDA)."""
-    _single_port(cfg)
+    """Insert cell reference signals into a TX grid (..., nsymb, nre), or into
+    every port of a multi-port grid (B, P, nsymb, nre) with P = nof_ports (the
+    other ports' CRS REs stay zero: the PDSCH mapping reserves them).  A
+    tensor input stays on its device and is not modified; other inputs go to
+    ``device`` (default CUDA)."""
     g = _on_device(grid_tx, device).clone()
+    cell = cfg.cell
+    if g.ndim >= 3 and cell.nof_ports >= 2 and g.shape[-3] == cell.nof_ports:
+        for p in range(cell.nof_ports):
+            _put_crs(cfg, g[..., p, :, :], p)
+    else:
+        _put_crs(cfg, g, port)
+    return g
+
+
+def _put_crs(cfg: PdschConfig, g: torch.Tensor, port: int) -> None:
+    """Write one port's CRS into the grid (..., nsymb, nre) in place."""
     syms, scs = G.crs_pattern(cfg.cell, port)
     vals = torch.as_tensor(G.crs_values(cfg.cell, port, cfg.subframe),
                            device=g.device)
     g[..., torch.as_tensor(syms, device=g.device)[:, None],
       torch.as_tensor(scs, device=g.device)] = vals
-    return g
 
 
 def decode(
@@ -134,23 +167,43 @@ def decode(
     """Decode PDSCH from a received resource grid (B, nsymb, nre), on the
     grid's device.
 
-    If ``h``/``noise_var`` are not given, they are estimated from the CRS.
+    If ``h``/``noise_var`` are not given, they are estimated from the CRS:
+    h is (B, nsymb, nre) for 1 port and (B, P, nsymb, nre) for 2/4 ports,
+    noise_var the mean of the per-port estimates.
     Returns dict(bits, crc_ok, softbuffers, h, noise_var, snr_db?).
     """
-    _single_port(cfg)
     out: dict = {}
+    n_ports = cfg.cell.nof_ports
     if h is None or noise_var is None:
-        est = chest_mod.estimate(chest_cfg or chest_mod.ChestConfig(cell=cfg.cell),
-                                 rx_grid, cfg.subframe, port=0)
-        h = est["h"] if h is None else h
-        noise_var = est["noise_var"] if noise_var is None else noise_var
-        out["snr_db"] = est["snr_db"]
+        ccfg = chest_cfg or chest_mod.ChestConfig(cell=cfg.cell)
+        ests = [chest_mod.estimate(ccfg, rx_grid, cfg.subframe, port=p)
+                for p in range(n_ports)]
+        if h is None:
+            h = (torch.stack([e["h"] for e in ests], dim=1) if n_ports > 1
+                 else ests[0]["h"])
+        if noise_var is None:
+            noise_var = (sum(e["noise_var"] for e in ests) / n_ports
+                         if n_ports > 1 else ests[0]["noise_var"])
+        out["snr_db"] = ests[0]["snr_db"]
 
     tab = _tables(cfg, rx_grid.device)
+    idx = tab["re_idx"]
     b = rx_grid.shape[0]
-    y = rx_grid.reshape(b, -1)[:, tab["re_idx"]]
-    h_re = h.reshape(b, -1)[:, tab["re_idx"]]
-    x, eff_nv = equalizer.equalize_single(y, h_re, noise_var)
+    y = rx_grid.reshape(b, -1)[:, idx]
+    if n_ports == 2:
+        x, eff_nv = equalizer.alamouti_decode_2x1(
+            y, h[:, 0].reshape(b, -1)[:, idx], h[:, 1].reshape(b, -1)[:, idx],
+            noise_var)
+    elif n_ports == 4:
+        h_re = h.reshape(b, 4, -1)[..., idx]
+        pad = (-y.shape[-1]) % 4
+        yp = torch.cat([y, y.new_zeros((b, pad))], dim=-1)
+        hp = torch.cat([h_re, h_re.new_ones((b, 4, pad))], dim=-1)
+        x, eff_nv = equalizer.sfbc_fstd_decode_4x1(yp, hp, noise_var)
+        x, eff_nv = x[..., :y.shape[-1]], eff_nv[..., :y.shape[-1]]
+    else:
+        x, eff_nv = equalizer.equalize_single(y, h.reshape(b, -1)[:, idx],
+                                              noise_var)
 
     # per-RE CSI-scaled LLRs: demod divides by the effective noise variance
     llr_scr = modem.demodulate_soft(cfg.mod, x, eff_nv)

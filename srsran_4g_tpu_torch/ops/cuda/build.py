@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so``
-under the checkout, at first use; the hash of the source names the file,
-so an edited source is rebuilt, and nvcc's output (with ``-Xptxas -v``'s
-register and spill report) is kept beside it as ``.log``.  Several sources
+under the checkout, at first use; the hash of the source and of the shared
+headers (``csrc/*.cuh``) names the file, so an edited source is rebuilt,
+and nvcc's output (with ``-Xptxas -v``'s register and spill report) is kept
+beside it as ``.log``.  Several sources
 build in parallel (one ``nvcc`` process each, all started together).  No
 fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -34,8 +35,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: list[str]) -> dict[str, Path]:

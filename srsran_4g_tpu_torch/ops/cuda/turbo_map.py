@@ -1,16 +1,28 @@
-"""Hopper kernel: one windowed max-log-MAP (BCJR) half-iteration.
+"""Hopper kernels: the windowed max-log-MAP (BCJR) half-iteration.
 
-Port counterpart of ``srsran_4g_tpu/ops/pallas/turbo_map.py``.  One CUDA
-kernel (``csrc/turbo_map.cu``) replaces the two TPU kernels on the PDSCH
-path, ``map_windowed_pallas_v9`` (the default) and
-``map_windowed_pallas_r4`` (L ≡ 2 mod 4): both compute this function, and
-the kernel takes any L and T.  The source note in the .cu file says what
-bounds it on the H100 and what its design does about that.
+Port counterpart of ``srsran_4g_tpu/ops/pallas/turbo_map.py``.  The TPU
+kernels there compute one function in several dataflows; the port has three,
+each a CUDA kernel with a plain torch version of the same arithmetic:
 
-``map_windowed`` launches the kernel on a CUDA tensor and runs the plain
-torch version ``map_windowed_ref`` only on a CPU tensor; there is no
-fallback from one to the other.  ``map_windowed.launches`` counts kernel
-launches.
+- ``map_windowed`` (``csrc/turbo_map.cu``): one radix-2 chain per lane with a
+  full-depth alpha store, for ``map_windowed_pallas_v9`` (the default),
+  ``map_windowed_pallas_r4`` and the shapes of ``map_windowed_pallas``; any L
+  and T.
+- ``map_fused`` (``csrc/turbo_fused.cu``): alpha and beta interleaved, LLRs
+  emitted against half-depth stores, for ``map_windowed_pallas_v7`` (radix 2)
+  and its ``radix4=True`` form v8 (radix 4).
+- ``sweep`` (``csrc/turbo_sweep.cu``) then ``emit`` (``csrc/turbo_emit.cu``):
+  the interleaved recursions storing the even-position metrics, then a fully
+  parallel emission, for ``map_windowed_pallas_v5`` (radix 4) +
+  ``emit_llr_pallas`` and ``map_windowed_pallas_v6`` (radix 2).
+
+``ops/turbo.kernel_route`` picks among them from ``TURBO_KERNEL`` as the JAX
+package does.  The source note in each .cu file says what bounds the kernel
+on the H100 and what its design does about that.
+
+Every wrapper launches its kernel on a CUDA tensor and runs its plain version
+(``*_ref``) only on a CPU tensor; there is no fallback from one to the other.
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,19 +32,20 @@ import functools
 
 import torch
 
-from srsran_4g_tpu_torch.ops.turbo import _alpha_step, _beta_step, _llr_from_metrics
+from srsran_4g_tpu_torch.ops.turbo import (
+    _alpha_step, _beta_step, _llr_from_metrics, _r4_tables, _step_tables)
+
+
+# --- the single-chain half-iteration (turbo_map.cu) -------------------------
 
 
 def map_windowed_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
                      nof_b: int, nof_w: int) -> torch.Tensor:
-    """Plain torch version of the kernel, same contract (see the .cu file).
-
-    gs_ext/gp_ext (L+2T, N), a_init/b_init (8, N) float32 → LLRs (L, N).
-    """
+    """Plain torch version of ``map_windowed``, same contract (see the .cu
+    file).  gs_ext/gp_ext (L+2T, N), a_init/b_init (8, N) float32 → LLRs
+    (L, N)."""
     n = gs_ext.shape[1]
-    lane = torch.arange(n, device=gs_ext.device)
-    m_a = (lane >= nof_b)[:, None]  # alpha training frozen on window 0
-    m_b = (lane < (nof_w - 1) * nof_b)[:, None]  # beta: on the last window
+    m_a, m_b = _train_masks(n, nof_b, nof_w, gs_ext.device)
     alpha = a_init.t()  # (N, 8)
     for r in range(t_train):
         alpha = torch.where(m_a, _alpha_step(alpha, gs_ext[r], gp_ext[r]), alpha)
@@ -51,17 +64,6 @@ def map_windowed_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
     return out
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    from srsran_4g_tpu_torch.ops.cuda.build import load
-
-    lib = load("turbo_map")
-    fn = lib.turbo_map_windowed
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 def map_windowed(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
                  a_init: torch.Tensor, b_init: torch.Tensor, t_train: int,
                  l_win: int, nof_b: int, nof_w: int) -> torch.Tensor:
@@ -71,41 +73,341 @@ def map_windowed(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     a_init/b_init: (8, N) float32.  CUDA tensors go to the kernel, CPU
     tensors to ``map_windowed_ref``.
     """
-    rows, n = gs_ext.shape
-    if rows != l_win + 2 * t_train or n != nof_b * nof_w:
-        raise ValueError(f"gamma rows {tuple(gs_ext.shape)} do not match "
-                         f"L={l_win}, T={t_train}, B={nof_b}, W={nof_w}")
-    for name, x, shape in (("gp_ext", gp_ext, (rows, n)),
-                           ("a_init", a_init, (8, n)),
-                           ("b_init", b_init, (8, n))):
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    tensors = (gs_ext, gp_ext, a_init, b_init)
-    if any(x.dtype != torch.float32 for x in tensors):
-        raise TypeError("map_windowed takes float32 tensors")
-    if any(x.device != gs_ext.device for x in tensors):
-        raise ValueError("map_windowed inputs lie on different devices")
-    if gs_ext.device.type == "cpu":
-        return map_windowed_ref(gs_ext, gp_ext, a_init, b_init, t_train, l_win,
-                                nof_b, nof_w)
-    if gs_ext.device.type != "cuda":
-        raise ValueError(f"map_windowed runs on CUDA or CPU, not {gs_ext.device}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("map_windowed takes contiguous tensors")
-    lib = _library()
-    with torch.cuda.device(gs_ext.device):
-        out = torch.empty((l_win, n), dtype=torch.float32, device=gs_ext.device)
-        astore = torch.empty((l_win, 8, n), dtype=torch.float32,
-                             device=gs_ext.device)
-        stream = torch.cuda.current_stream(gs_ext.device).cuda_stream
-        err = lib.turbo_map_windowed(
-            gs_ext.data_ptr(), gp_ext.data_ptr(), a_init.data_ptr(),
-            b_init.data_ptr(), astore.data_ptr(), out.data_ptr(), n, t_train,
-            l_win, nof_b, nof_w, stream)
-    if err:
-        raise RuntimeError(f"turbo_map_windowed launch failed: CUDA error {err}")
+    args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
+    if not _check_windowed("map_windowed", *args):
+        return map_windowed_ref(*args)
+    n = gs_ext.shape[1]
+    out = gs_ext.new_empty((l_win, n))
+    astore = gs_ext.new_empty((l_win, 8, n))
+    _launch("turbo_map", "turbo_map_windowed", 6, 5, gs_ext, gp_ext, a_init,
+            b_init, astore, out, n, t_train, l_win, nof_b, nof_w)
     map_windowed.launches += 1
     return out
 
 
 map_windowed.launches = 0
+
+
+# --- plain steps of the paired dataflows (trellis.cuh) ----------------------
+# Metrics are (N, 8).  Gamma terms are added in the order of the JAX
+# states-as-registers kernels; a 0/1 coefficient times a gamma adds ±0, which
+# leaves a sum unchanged, so each expression below equals the kernel's.
+
+
+def _astep2(a, gs, gp):
+    """Radix-2 alpha step, unnormalised (_make_kernel_v6 astep)."""
+    t = _step_tables(a.device)
+    gs, gp = gs[:, None], gp[:, None]
+    return torch.maximum(a[:, t["pred0"]] + (t["u0"] * gs + t["q0"] * gp),
+                         a[:, t["pred1"]] + (t["u1"] * gs + t["q1"] * gp))
+
+
+def _bstep2(b, gs, gp):
+    """Radix-2 beta step, beta_{k+1} → beta_k, unnormalised."""
+    t = _step_tables(b.device)
+    gs, gp = gs[:, None], gp[:, None]
+    return torch.maximum(b[:, t["ns0"]] + t["p0"] * gp,
+                         b[:, t["ns1"]] + (gs + t["p1"] * gp))
+
+
+def _step4(x, g, alpha: bool, grouped: bool):
+    """Radix-4 step over the row pair g = (gs0, gp0, gs1, gp1), unnormalised:
+    alpha(2i) → alpha(2i+2), or beta(2i+2) → beta(2i).  ``grouped`` adds the
+    input and parity terms as one sum (v7/v8); otherwise parity, then input
+    (v5)."""
+    r = _r4_tables(x.device)
+    idx, c1, c2 = ((r["pred"], r["ap1"], r["ap2"]) if alpha
+                   else (r["next"], r["bp1"], r["bp2"]))
+    g0s, g0p, g1s, g1p = (v[:, None] for v in g)
+    cands = []
+    for j in range(4):
+        u_row = r["u1"][j] * g0s + r["u2"][j] * g1s
+        p_row = c1[:, j] * g0p + c2[:, j] * g1p
+        xj = x[:, idx[:, j]]
+        cands.append(xj + (u_row + p_row) if grouped else xj + p_row + u_row)
+    return torch.maximum(torch.maximum(cands[0], cands[1]),
+                         torch.maximum(cands[2], cands[3]))
+
+
+def _norm0(x):
+    return x - x[:, :1]
+
+
+def _advance_a(a, g, radix: int, fused: bool):
+    """Alpha over one row pair under the sweep (v5/v6) or the fused (v7/v8)
+    schedule; only radix 4 differs between them."""
+    if radix == 4:
+        n = _step4(a, g, alpha=True, grouped=fused)
+        return n if fused else _norm0(n)
+    return _astep2(_astep2(a, g[0], g[1]), g[2], g[3])
+
+
+def _advance_b(b, g, radix: int, fused: bool):
+    if radix == 4:
+        n = _step4(b, g, alpha=False, grouped=fused)
+        return n if fused else _norm0(n)
+    return _bstep2(_bstep2(b, g[2], g[3]), g[0], g[1])
+
+
+def _emit2(a, b1, gs, gp):
+    """LLR at k from alpha_k and beta_{k+1}, the fused kernels' emission."""
+    t = _step_tables(a.device)
+    gp_ = gp[:, None]
+    m1 = (a + (b1[:, t["ns1"]] + t["p1"] * gp_)).amax(dim=-1)
+    m0 = (a + (b1[:, t["ns0"]] + t["p0"] * gp_)).amax(dim=-1)
+    return m1 + gs - m0
+
+
+def _pair(gs_ext, gp_ext, row: int):
+    return gs_ext[row], gp_ext[row], gs_ext[row + 1], gp_ext[row + 1]
+
+
+def _train_masks(n: int, nof_b: int, nof_w: int, device):
+    """Lanes whose alpha (not window 0) / beta (not the last window) train."""
+    lane = torch.arange(n, device=device)
+    return (lane >= nof_b)[:, None], (lane < (nof_w - 1) * nof_b)[:, None]
+
+
+def _train(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w,
+           radix, fused):
+    """Both chains through their training rows, frozen on boundary windows."""
+    m_a, m_b = _train_masks(gs_ext.shape[1], nof_b, nof_w, gs_ext.device)
+    s_all = l_win + 2 * t_train
+    a, b = a_init.t(), b_init.t()
+    for i in range(t_train // 2):
+        na = _advance_a(a, _pair(gs_ext, gp_ext, 2 * i), radix, fused)
+        nb = _advance_b(b, _pair(gs_ext, gp_ext, s_all - 2 - 2 * i), radix, fused)
+        a, b = torch.where(m_a, na, a), torch.where(m_b, nb, b)
+    return a, b
+
+
+# --- the fused two-phase half-iteration (turbo_fused.cu) --------------------
+
+
+def map_fused_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
+                  nof_b: int, nof_w: int, radix: int) -> torch.Tensor:
+    """Plain torch version of ``map_fused`` (``_make_kernel_v7``), same
+    contract.  → LLRs (L, N)."""
+    n = gs_ext.shape[1]
+    l2 = l_win // 2
+    h = l2 // 2
+    a, b = _train(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w,
+                  radix, fused=True)
+    astore, bstore = [], []
+    for j in range(h):  # phase 1: alpha(2j), beta(L-2j)
+        astore.append(a)
+        bstore.append(b)
+        a = _norm0(_advance_a(a, _pair(gs_ext, gp_ext, t_train + 2 * j), radix, True))
+        b = _norm0(_advance_b(b, _pair(gs_ext, gp_ext, t_train + l_win - 2 - 2 * j),
+                              radix, True))
+    out = gs_ext.new_empty((l_win, n))
+    for j in range(h, l2):  # phase 2: four LLRs per iteration
+        ga = _pair(gs_ext, gp_ext, t_train + 2 * j)
+        bsl = bstore[l2 - 1 - j]  # beta(2j+2)
+        out[2 * j] = _emit2(a, _bstep2(bsl, ga[2], ga[3]), ga[0], ga[1])
+        ao = _astep2(a, ga[0], ga[1])
+        out[2 * j + 1] = _emit2(ao, bsl, ga[2], ga[3])
+        e = l_win - 2 * j - 2
+        gb = _pair(gs_ext, gp_ext, t_train + e)
+        asl = astore[l2 - 1 - j]  # alpha(e)
+        b1b = _bstep2(b, gb[2], gb[3])
+        out[e] = _emit2(asl, b1b, gb[0], gb[1])
+        out[e + 1] = _emit2(_astep2(asl, gb[0], gb[1]), b, gb[2], gb[3])
+        if radix == 4:
+            a, b = _advance_a(a, ga, 4, True), _advance_b(b, gb, 4, True)
+        else:
+            a, b = _astep2(ao, ga[2], ga[3]), _bstep2(b1b, gb[0], gb[1])
+        a, b = _norm0(a), _norm0(b)
+    return out
+
+
+def map_fused(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
+              b_init: torch.Tensor, t_train: int, l_win: int, nof_b: int,
+              nof_w: int, radix: int) -> torch.Tensor:
+    """One windowed max-log-MAP half-iteration in the fused two-phase
+    dataflow (v7 at radix 2, v8 at radix 4) → LLRs (L, N) float32.
+
+    Takes ``map_windowed``'s inputs; needs L % 4 == 0 and T even.  CUDA
+    tensors go to the kernel, CPU tensors to ``map_fused_ref``.
+    """
+    args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
+    _check_radix("map_fused", radix)
+    if l_win % 4 or t_train % 2:
+        raise ValueError(f"map_fused needs L % 4 == 0 and T even, not L={l_win}, "
+                         f"T={t_train}")
+    if not _check_windowed("map_fused", *args):
+        return map_fused_ref(*args, radix)
+    n = gs_ext.shape[1]
+    out = gs_ext.new_empty((l_win, n))
+    astore = gs_ext.new_empty((l_win // 4, 8, n))
+    bstore = gs_ext.new_empty((l_win // 4, 8, n))
+    _launch("turbo_fused", "turbo_map_fused", 7, 6, gs_ext, gp_ext, a_init,
+            b_init, astore, bstore, out, n, t_train, l_win, nof_b, nof_w, radix)
+    map_fused.launches += 1
+    return out
+
+
+map_fused.launches = 0
+
+
+# --- the split sweep / emission half-iteration (turbo_sweep/emit.cu) -------
+
+
+def sweep_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
+              nof_b: int, nof_w: int, radix: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of ``sweep`` (``_make_kernel_v5`` at radix 4,
+    ``_make_kernel_v6`` at radix 2), same contract."""
+    n = gs_ext.shape[1]
+    l2 = l_win // 2
+    a, b = _train(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w,
+                  radix, fused=False)
+    astore = gs_ext.new_empty((l2, 8, n))
+    bstore = gs_ext.new_empty((l2, 8, n))
+    for j in range(l2):
+        astore[j] = a.t()
+        bstore[l2 - 1 - j] = b.t()
+        a = _advance_a(a, _pair(gs_ext, gp_ext, t_train + 2 * j), radix, False)
+        b = _advance_b(b, _pair(gs_ext, gp_ext, t_train + l_win - 2 - 2 * j),
+                       radix, False)
+        if radix == 2:
+            a, b = _norm0(a), _norm0(b)
+    return astore, bstore
+
+
+def sweep(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
+          b_init: torch.Tensor, t_train: int, l_win: int, nof_b: int,
+          nof_w: int, radix: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The alpha and beta recursions of one half-iteration, interleaved, with
+    the v5 (radix 4) or v6 (radix 2) schedule → (astore, bstore), each
+    (L/2, 8, N) float32: alpha at k_rel = 2i, beta at k_rel = 2i+2.
+
+    Takes ``map_windowed``'s inputs; needs L and T even.  CUDA tensors go to
+    the kernel, CPU tensors to ``sweep_ref``.
+    """
+    args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
+    _check_radix("sweep", radix)
+    if l_win % 2 or t_train % 2:
+        raise ValueError(f"sweep needs L and T even, not L={l_win}, T={t_train}")
+    if not _check_windowed("sweep", *args):
+        return sweep_ref(*args, radix)
+    n = gs_ext.shape[1]
+    astore = gs_ext.new_empty((l_win // 2, 8, n))
+    bstore = gs_ext.new_empty((l_win // 2, 8, n))
+    _launch("turbo_sweep", "turbo_sweep", 6, 6, gs_ext, gp_ext, a_init, b_init,
+            astore, bstore, n, t_train, l_win, nof_b, nof_w, radix)
+    sweep.launches += 1
+    return astore, bstore
+
+
+sweep.launches = 0
+
+
+def emit_ref(g2s, g2p, astore, bstore) -> torch.Tensor:
+    """Plain torch version of ``emit`` (``_make_emit_kernel``), same contract,
+    all position pairs at once."""
+    t = _step_tables(astore.device)
+    ae, be = astore.transpose(1, 2), bstore.transpose(1, 2)  # (L/2, N, 8)
+    ges, gos = g2s[:, 0, :, None], g2s[:, 1, :, None]
+    gep, gop = g2p[:, 0, :, None], g2p[:, 1, :, None]
+    ao = torch.maximum(ae[..., t["pred0"]] + t["u0"] * ges + t["q0"] * gep,
+                       ae[..., t["pred1"]] + t["u1"] * ges + t["q1"] * gep)
+    bo = torch.maximum(be[..., t["ns0"]] + t["p0"] * gop,
+                       be[..., t["ns1"]] + gos + t["p1"] * gop)
+
+    def llr(a, b1, gs, gp):
+        m1 = (a + b1[..., t["ns1"]] + t["p1"] * gp).amax(dim=-1)
+        m0 = (a + b1[..., t["ns0"]] + t["p0"] * gp).amax(dim=-1)
+        return m1 + gs[..., 0] - m0
+
+    return torch.stack([llr(ae, bo, ges, gep), llr(ao, be, gos, gop)], dim=1)
+
+
+def emit(g2s: torch.Tensor, g2p: torch.Tensor, astore: torch.Tensor,
+         bstore: torch.Tensor) -> torch.Tensor:
+    """LLRs from ``sweep``'s stores → (L/2, 2, N) float32 (reshapes to
+    (L, N)).
+
+    g2s/g2p: (L/2, 2, N) float32 body gamma rows (``gs_ext[T:T+L]`` viewed in
+    pairs); astore/bstore: (L/2, 8, N) float32.  CUDA tensors go to the
+    kernel, CPU tensors to ``emit_ref``.
+    """
+    l2, two, n = g2s.shape
+    if two != 2:
+        raise ValueError(f"g2s has shape {tuple(g2s.shape)}, expected (L/2, 2, N)")
+    for name, x, shape in (("g2p", g2p, (l2, 2, n)), ("astore", astore, (l2, 8, n)),
+                           ("bstore", bstore, (l2, 8, n))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not _check_tensors("emit", (g2s, g2p, astore, bstore)):
+        return emit_ref(g2s, g2p, astore, bstore)
+    out = g2s.new_empty((l2, 2, n))
+    _launch("turbo_emit", "turbo_emit", 5, 2, g2s, g2p, astore, bstore, out, n, l2)
+    emit.launches += 1
+    return out
+
+
+emit.launches = 0
+
+
+# --- input checks and launches ----------------------------------------------
+
+
+def _check_radix(name: str, radix: int) -> None:
+    if radix not in (2, 4):
+        raise ValueError(f"{name} takes radix 2 or 4, not {radix}")
+
+
+def _check_windowed(name, gs_ext, gp_ext, a_init, b_init, t_train, l_win,
+                    nof_b, nof_w) -> bool:
+    """Raise on inputs the half-iteration kernels do not take; True for CUDA
+    tensors (launch the kernel), False for CPU tensors (the plain version)."""
+    rows, n = gs_ext.shape
+    if rows != l_win + 2 * t_train or n != nof_b * nof_w:
+        raise ValueError(f"gamma rows {tuple(gs_ext.shape)} do not match "
+                         f"L={l_win}, T={t_train}, B={nof_b}, W={nof_w}")
+    for arg, x, shape in (("gp_ext", gp_ext, (rows, n)), ("a_init", a_init, (8, n)),
+                          ("b_init", b_init, (8, n))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{arg} has shape {tuple(x.shape)}, expected {shape}")
+    return _check_tensors(name, (gs_ext, gp_ext, a_init, b_init))
+
+
+def _check_tensors(name: str, tensors) -> bool:
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError(f"{name} takes float32 tensors")
+    device = tensors[0].device
+    if any(x.device != device for x in tensors):
+        raise ValueError(f"{name} inputs lie on different devices")
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU, not {device}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(source: str, symbol: str, n_ptr: int, n_int: int):
+    """The C entry ``symbol`` of ``csrc/<source>.cu``: n_ptr pointers, n_int
+    ints, then the stream; returns a CUDA error code."""
+    from srsran_4g_tpu_torch.ops.cuda.build import load
+
+    fn = getattr(load(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(source: str, symbol: str, n_ptr: int, n_int: int, *args) -> None:
+    """Launch on the current stream of the first tensor's device; raise if
+    the launch was refused."""
+    fn = _kernel(source, symbol, n_ptr, n_int)
+    tensors, ints = args[:n_ptr], args[n_ptr:]
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(x.data_ptr() for x in tensors), *ints, stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")

@@ -9,8 +9,9 @@ Decoder: batched over code blocks; each half-iteration is a windowed BCJR
 whose K-step recursions are split into W = K/L windows run in parallel,
 each with a T-step training prologue (window 0's alpha and the last
 window's beta start from exact boundary metrics).  The half-iteration runs
-in the CUDA kernel of ``ops/cuda/turbo_map.py`` on a card and in its plain
-torch version on the CPU; the inputs are laid out for it here, lane =
+in the CUDA kernels of ``ops/cuda/turbo_map.py`` on a card and in their
+plain torch versions on the CPU, in the dataflow that ``TURBO_KERNEL``
+selects (``kernel_route``); the inputs are laid out for them here, lane =
 window·B + block.  The exact full-length recursion (``window=None``, or a
 K with no valid window) is the same function at L = K, T = 0, W = 1.
 
@@ -21,6 +22,7 @@ compensates max-log optimism.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -180,6 +182,29 @@ def _step_tables(device: torch.device) -> dict[str, torch.Tensor]:
     )
 
 
+@functools.lru_cache(maxsize=8)
+def _r4_tables(device: torch.device) -> dict:
+    """Radix-4 (two steps fused) tables.  For the path j = 2·u1 + u2: alpha's
+    predecessor two steps before each state (``pred``) and beta's successor
+    two steps after it (``next``), each with the path's two parity bits as
+    float32 0/1 columns (``ap1``/``ap2``, ``bp1``/``bp2``), and the path's
+    input bits ``u1``/``u2`` as floats."""
+    t = _trellis()
+    ns, par = t["ns"], t["par"]
+    pred, nxt = np.zeros((8, 4), np.int64), np.zeros((8, 4), np.int64)
+    ap1, ap2, bp1, bp2 = (np.zeros((8, 4), np.float32) for _ in range(4))
+    for p in range(8):
+        for j in range(4):
+            u1, u2 = j >> 1, j & 1
+            m = ns[p, u1]
+            s = ns[m, u2]
+            pred[s, j], ap1[s, j], ap2[s, j] = p, par[p, u1], par[m, u2]
+            nxt[p, j], bp1[p, j], bp2[p, j] = s, par[p, u1], par[m, u2]
+    tensors = dict(pred=pred, next=nxt, ap1=ap1, ap2=ap2, bp1=bp1, bp2=bp2)
+    return dict({k: torch.as_tensor(v, device=device) for k, v in tensors.items()},
+                u1=(0.0, 0.0, 1.0, 1.0), u2=(0.0, 1.0, 0.0, 1.0))
+
+
 def _alpha_step(alpha, g_sys, g_par):
     """alpha_k (..., 8) → alpha_{k+1}, normalised to its max.
     g_sys/g_par: (...,) branch LLR terms."""
@@ -254,16 +279,47 @@ def _windowed_inputs(lsa, lp, tail_sys, tail_par, win_len: int, train_len: int):
     return gs_ext, gp_ext, a_init, b_init, w
 
 
+def kernel_route(name: str, l: int, t: int) -> str:
+    """The dataflow that ``TURBO_KERNEL=name`` selects at window L, training
+    T: the JAX package's rule (``srsran_4g_tpu/ops/turbo.py:433-452``).
+
+    Returns "v4"…"v9" for the paired family (even L, even T >= 2; v7, v8
+    and v9 need L % 4 == 0 and otherwise become v4) and "v1" for everything
+    else, any unknown name included.  JAX's one further rule, v6 → v7 when
+    v6's stores would not fit the TPU's 15 MB scoped-VMEM budget, is left
+    out: it is a TPU memory limit that Hopper does not have, so the port
+    runs v6 as asked.
+    """
+    if name in ("v7", "v8", "v9") and l % 4:
+        name = "v4"
+    if name in ("v4", "v5", "v6", "v7", "v8", "v9") and l % 2 == 0 \
+            and t % 2 == 0 and t >= 2:
+        return name
+    return "v1"
+
+
 def _map_windowed(lsa, lp, tail_sys, tail_par, win_len: int, train_len: int):
     """One windowed max-log BCJR half-iteration over (B, K) code blocks →
-    a-posteriori LLRs (B, K)."""
-    from srsran_4g_tpu_torch.ops.cuda.turbo_map import map_windowed
+    a-posteriori LLRs (B, K), in the dataflow ``TURBO_KERNEL`` names
+    (default v9): v7/v8 → ``map_fused`` at radix 2/4, v5/v6 → ``sweep`` at
+    radix 4/2 then ``emit``, and v1, v4, v9 → ``map_windowed``."""
+    from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 
     b, k = lsa.shape
     l, t = win_len, train_len
+    route = kernel_route(os.environ.get("TURBO_KERNEL", "v9"), l, t)
     gs_ext, gp_ext, a_init, b_init, w = _windowed_inputs(
         lsa, lp, tail_sys, tail_par, l, t)
-    llr = map_windowed(gs_ext, gp_ext, a_init, b_init, t, l, b, w)  # (L, N)
+    args = (gs_ext, gp_ext, a_init, b_init, t, l, b, w)
+    if route in ("v7", "v8"):
+        llr = tm.map_fused(*args, radix=2 if route == "v7" else 4)
+    elif route in ("v5", "v6"):
+        astore, bstore = tm.sweep(*args, radix=4 if route == "v5" else 2)
+        n = w * b
+        llr = tm.emit(gs_ext[t:t + l].view(l // 2, 2, n),
+                      gp_ext[t:t + l].view(l // 2, 2, n), astore, bstore)
+    else:
+        llr = tm.map_windowed(*args)
     return llr.reshape(l, w, b).permute(2, 1, 0).reshape(b, k)
 
 

@@ -137,10 +137,3 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.softbuffers_from_numpy({0: np.zeros((1, 3, 2052), np.float32)})
 
-
-def test_multi_port_is_refused():
-    cell = jgrid.CellConfig(nof_prb=6, cell_id=1, nof_ports=2)
-    cfg = convert.pdsch_config_from_dict(dataclasses.asdict(
-        jpdsch.PdschConfig(cell=cell, rnti=1, subframe=1, mod="qpsk", tbs=152)))
-    with pytest.raises(NotImplementedError):
-        pdsch.encode(cfg, np.zeros((1, 152), np.int8), device="cpu")
