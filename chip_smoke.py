@@ -5,18 +5,27 @@
 Builds every CUDA kernel of the port from ``srsran_4g_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together), holds each kernel against its
 plain PyTorch version on the card at the shapes the main path gives it (and
-at small shapes), then drives the port's paths:
+at small shapes: odd L and T, L ≡ 2 mod 4, L = K with T = 0), then drives
+the port's paths, each with the launch counters set to 0 just before it and
+read just after:
 
 - the main path — PDSCH encode → CRS → AWGN at 30 dB → decode at 20 MHz
   (100 PRB, 64QAM, TBS 75376, 13 code blocks of K=5824), turbo n_iter 4
   with the CRC early stop, 128 subframes a batch — under each value of
-  ``TURBO_KERNEL`` (v9, the default, then v7, v8, v5, v6), each checked for
-  every CRC passing, every decoded bit equal to the sent one, and the
-  launch counters of its own kernels moving while the others stay at 0;
-  v9 is also timed by stage, profiled, and swept over batch and SNR;
+  ``TURBO_KERNEL`` (v9, the default, then bf16, v3, v4, v7, v8, v5, v6),
+  each checked for every CRC passing, every decoded bit equal to the sent
+  one, and the launch counters of its own kernels moving while the others
+  stay at 0; v9 is also timed by stage, profiled, and swept over batch and
+  SNR;
 - the TM4 2x2 dual-codeword lane (``models/pdsch_mimo``) at pmi 2, batch 64,
   30 dB through the fixed 2x2 channel of the JAX package's MIMO gate, both
-  codewords checked the same way.
+  codewords checked the same way;
+- the downlink from time-domain samples: 128 captures of a 100 PRB
+  subframe 5 (``models/enb_dl``, ``ops/ofdm``) after a random lead, with a
+  random phase, a CFO and AWGN at 30 dB, searched blind
+  (``models/ue_dl.cell_search``: PSS, CFO, alignment, OFDM demod, SSS) and
+  decoded from the grid the search returns, each capture checked for its
+  cell id, frame phase, exact timing offset, CFO, CRCs and bits.
 
 Output (stdout): the card's name and power limit, the build and check
 lines, per-path subframes/s (best of 3), a per-stage split, then one JSON
@@ -37,11 +46,16 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth and f32 outside
-# the tensor cores, the rates the bounds below are computed against
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, f32 outside the
+# tensor cores, and bf16 (the data sheet's one bf16 rate, the tensor cores'),
+# the rates the bounds below are computed against
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-ATOL = 1e-3  # kernel vs plain version: f32, same arithmetic in the same order
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+ATOL = 1e-3  # f32 kernel vs plain version: same arithmetic in the same order
+# bf16 kernels vs plain version: the repo's 16-bit bars (hard bits identical,
+# atol 2.5, mean |diff| < 0.5); the same bf16 ops in the same order, so 0 is
+# expected
+ATOL16, MEAN16 = 2.5, 0.5
 SEED = 1234
 BATCH = 128  # subframes per decode call
 N_ITER = 4
@@ -55,15 +69,33 @@ MIMO_PMI = 2
 # the fixed 2x2 channel of the JAX package's MIMO gate (tools/tpu_smoke.py)
 MIMO_H = ((1.0 + 0.1j, 0.3 - 0.4j), (0.2 + 0.4j, -0.9 + 0.2j))
 # TURBO_KERNEL -> the wrappers whose kernels that path launches
-PATH_KERNELS = {"v9": ("map_windowed",), "v7": ("map_fused",),
-                "v8": ("map_fused",), "v5": ("sweep", "emit"),
-                "v6": ("sweep", "emit")}
-WRAPPERS = ("map_windowed", "map_fused", "sweep", "emit")
+PATH_KERNELS = {"v9": ("map_fused16",), "bf16": ("map_windowed16",),
+                "v3": ("map_v3",), "v4": ("map_windowed",),
+                "v7": ("map_fused",), "v8": ("map_fused",),
+                "v5": ("sweep", "emit"), "v6": ("sweep", "emit")}
+WRAPPERS = ("map_windowed", "map_windowed16", "map_v3", "map_fused",
+            "map_fused16", "sweep", "emit")
+BF16_WRAPPERS = ("map_windowed16", "map_fused16")
+# the downlink from samples: 100 PRB, subframe 5 (PSS/SSS present), a cell id
+# that is not a multiple of 3; captures of a random lead of 0..DL_LEAD_MAX
+# samples, the subframe, and a tail of at least DL_TAIL; CFO uniform in
+# +-DL_CFO subcarriers (the largest of 0.1, 0.05, 0 at which the JAX package
+# on the CPU searched, took the CFO from the CP and decoded a batch-2 capture
+# exactly).  Above 6 PRB cell_search takes the CFO from the CP and refines
+# the timing from the PSS's phase slope, so the offset must be exact.
+DL_CELL_ID = 301
+DL_SUBFRAME = 5
+DL_LEAD_MAX, DL_TAIL = 2000, 400
+DL_CFO = 0.1
+DL_CFO_TOL = 0.02
 # kernel route -> (its wrapper and radix, its source under csrc/, the line of
 # the TPU kernel it replaces in srsran_4g_tpu/ops/pallas/turbo_map.py, and the
 # TURBO_KERNEL path whose decode gives its launches)
 ROUTES = {
-    "turbo_map": ("map_windowed", None, "turbo_map.cu", 942, "v9"),
+    "turbo_map": ("map_windowed", None, "turbo_map.cu", 272, "v4"),
+    "map_windowed16": ("map_windowed16", None, "turbo_map.cu", 1323, "bf16"),
+    "map_v3": ("map_v3", None, "turbo_v3.cu", 1189, "v3"),
+    "map_fused16": ("map_fused16", None, "turbo_fused.cu", 942, "v9"),
     "map_fused_r2": ("map_fused", 2, "turbo_fused.cu", 872, "v7"),
     "map_fused_r4": ("map_fused", 4, "turbo_fused.cu", 872, "v8"),
     "sweep_r2": ("sweep", 2, "turbo_sweep.cu", 1022, "v6"),
@@ -104,20 +136,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
-    """Least time (ms) for work that moves ``nbytes`` and does ``ops`` f32
-    operations, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+def bound(nbytes: int, ops: int, kind: str) -> tuple[float, str]:
+    """Least time (ms) for work that moves ``nbytes`` and does ``ops``
+    operations of type ``kind`` ("f32" or "bf16"), and which of the two
+    bounds it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def work(wrapper: str, b: int, k: int, l: int, t: int) -> tuple[int, int]:
-    """Bytes (each input read once, each output written once) and f32
+    """Bytes (each input read once, each output written once) and
     operations of one call of ``wrapper`` at these shapes.  The
-    half-iteration (map_windowed, map_fused) reads the gammas and initial
-    metrics and writes L LLRs per lane; sweep writes the L/2 even-position
-    stores of both chains instead, and emit reads those stores and the body
-    gammas.  Operations: 39 per
+    half-iteration (map_windowed, map_windowed16, map_v3, map_fused,
+    map_fused16) reads the float32 gammas and initial metrics and writes L
+    float32 LLRs per lane; sweep writes the L/2 even-position stores of both
+    chains instead, and emit reads those stores and the body gammas.
+    Operations (bf16 for the 16-bit kernels, else f32): 39 per
     trellis step per chain (16 branch adds, 8+7 max, 8 normalising
     subtracts), counting only lanes whose training is not frozen, 40 per
     LLR, and 48 for emit's two odd-position steps per pair."""
@@ -161,21 +195,39 @@ def kernel_calls(args, route: str):
 
 
 def check_kernel(route: str, args, time_it=False) -> dict:
-    """One route's kernel vs its plain version on the card, same inputs."""
+    """One route's kernel vs its plain version on the card, same inputs: f32
+    kernels to atol 1e-3, bf16 kernels to the 16-bit bars; map_v3 also
+    against turbo_map's LLRs."""
+    from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+
     gs, _, _, _, t, l, b, w = args
     kernel, plain = kernel_calls(args, route)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     err = max(float((g - p).abs().max()) for g, p in pairs)
     desc = f"B={b} L={l} T={t} N={w * b}"
-    if not np.isfinite(err) or err > ATOL:
+    if not np.isfinite(err):
+        raise AssertionError(f"{route} kernel vs plain at {desc}: not finite")
+    if ROUTES[route][0] in BF16_WRAPPERS:
+        mean = float((got - want).abs().mean())
+        if err > ATOL16 or mean >= MEAN16 or not torch.equal(got > 0, want > 0):
+            raise AssertionError(f"{route} kernel vs plain at {desc}: max |diff| {err}, "
+                                 f"mean {mean}, or a hard decision differs")
+    elif err > ATOL:
         raise AssertionError(f"{route} kernel vs plain at {desc}: max |diff| {err} > {ATOL}")
     res = dict(max_abs_err=err)
+    if route == "map_v3":
+        res["vs_turbo_map"] = float((got - tm.map_windowed(*args)).abs().max())
+        torch.cuda.synchronize()
+        if res["vs_turbo_map"] > ATOL:
+            raise AssertionError(f"map_v3 vs turbo_map at {desc}: max |diff| "
+                                 f"{res['vs_turbo_map']} > {ATOL}")
     if time_it:
         res["ms"] = cuda_ms(kernel, reps=20)
         res["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
     log(f"check {route} {desc}: max|diff| {err:.3g}"
+        + (f" (vs turbo_map {res['vs_turbo_map']:.3g})" if "vs_turbo_map" in res else "")
         + (f", kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms" if time_it else ""))
     return res
 
@@ -183,18 +235,21 @@ def check_kernel(route: str, args, time_it=False) -> dict:
 def check_kernels(dev, gen, b, k) -> dict:
     """Every route at the bench shape (timed) and at small shapes; the
     largest |diff| of each route over its checks."""
-    routes = tuple(ROUTES)
     bench = gamma_inputs(dev, gen, b, k, 208, 32)
-    out = {r: check_kernel(r, bench, time_it=True) for r in routes}
-    small = [((64, 424, 106, 32), ("turbo_map", "sweep_r2", "sweep_r4", "emit")),  # L ≡ 2 (mod 4)
-             ((32, 512, 64, 31), ("turbo_map",)),                                 # odd T
-             ((16, 40, 40, 0), ("turbo_map",)),                                   # L = K, T = 0
-             ((64, 512, 64, 16), routes[1:])]                                     # L % 4 == 0
+    out = {r: check_kernel(r, bench, time_it=True) for r in ROUTES}
+    any_shape = ("turbo_map", "map_windowed16", "map_v3")  # the v1 bodies
+    small = [((64, 424, 106, 32), any_shape + ("sweep_r2", "sweep_r4", "emit")),  # L ≡ 2 (mod 4)
+             ((32, 512, 64, 31), any_shape),                                      # odd T
+             ((32, 504, 63, 16), any_shape),                                      # odd L
+             ((33, 40, 40, 0), any_shape),                                        # L = K, T = 0, N odd
+             ((64, 512, 64, 16), tuple(r for r in ROUTES if r not in any_shape))]  # L % 4 == 0
     for shape, names in small:
         args = gamma_inputs(dev, gen, *shape)
         for r in names:
-            out[r]["max_abs_err"] = max(out[r]["max_abs_err"],
-                                        check_kernel(r, args)["max_abs_err"])
+            res = check_kernel(r, args)
+            for key in ("max_abs_err", "vs_turbo_map"):
+                if key in res:
+                    out[r][key] = max(out[r][key], res[key])
     return out
 
 
@@ -241,14 +296,14 @@ def sweeps(cfg, tx, rx, bits, gen, card) -> None:
                 and torch.equal(out["bits"], bits.repeat(tile, 1)[:b])):
             raise AssertionError(f"batch {b}: decode is not exact")
         log(f"[{card}] batch sweep {SNR_DB} dB: batch {b}: best {min(times) * 1e3:.2f} ms "
-            f"= {b / min(times):.1f} subframes/s, turbo_map launches {launches}")
+            f"= {b / min(times):.1f} subframes/s, turbo launches {launches}")
     for snr in SWEEP_SNR_DB:
         rx_s = awgn.awgn(tx, awgn.snr_to_noise_var(snr), generator=gen)
         times, launches, out = timed_decodes(cfg, rx_s, 3)
         n_ok = int(out["crc_ok"].sum())
         n_exact = int((out["bits"] == bits).all(dim=1).sum())
         log(f"[{card}] SNR sweep batch {BATCH}: {snr} dB: best {min(times) * 1e3:.2f} ms "
-            f"= {BATCH / min(times):.1f} subframes/s, turbo_map launches {launches}, "
+            f"= {BATCH / min(times):.1f} subframes/s, turbo launches {launches}, "
             f"crc_ok {n_ok}/{BATCH}, exact {n_exact}/{BATCH}")
 
 
@@ -371,7 +426,7 @@ def mimo_lane(dev, gen, card: str) -> dict[str, int]:
     counts = launch_counts()
     for q in (0, 1):
         check_exact(out[f"crc_ok{q}"], out[f"bits{q}"], tbs[q], f"TM4 codeword {q}")
-    if not counts["map_windowed"]:
+    if not counts["map_fused16"]:
         raise AssertionError(f"the TM4 lane launched no turbo kernel: {counts}")
     times, _, out = timed_decodes(mcfg, rx, PATH_REPS, decode=pdsch_mimo.decode)
     for q in (0, 1):
@@ -382,6 +437,132 @@ def mimo_lane(dev, gen, card: str) -> dict[str, int]:
         f"({', '.join(f'{t * 1e3:.2f}' for t in times)}) = "
         f"{MIMO_BATCH / min(times):.1f} subframes/s")
     profile_decode(mcfg, rx, min(times), card, decode=pdsch_mimo.decode)
+    return counts
+
+
+def dl_captures(dev, gen, cfg, cfo_max: float):
+    """DL-from-samples traffic: BATCH captures of one subframe of ``cfg``,
+    each after a random lead and with a random phase, a CFO uniform in
+    +-cfo_max subcarriers and AWGN at SNR_DB.  Returns (captures (B, n)
+    complex64, sent bits, lead (B,), cfo (B,))."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import enb_dl
+    from srsran_4g_tpu_torch.ops.ofdm import OfdmConfig
+
+    ocfg = OfdmConfig(nof_prb=cfg.cell.nof_prb)
+    bits = torch.randint(0, 2, (BATCH, cfg.tbs), generator=gen, device=dev,
+                         dtype=torch.int8)
+    sf = enb_dl.subframe_to_samples(cfg.cell, enb_dl.assemble_subframe(cfg, bits))
+    n = DL_LEAD_MAX + ocfg.sf_len + DL_TAIL
+    lead = torch.randint(0, DL_LEAD_MAX + 1, (BATCH,), generator=gen, device=dev)
+    gain = torch.polar(torch.ones(BATCH, device=dev),
+                       2 * np.pi * torch.rand(BATCH, generator=gen, device=dev))
+    cap = torch.zeros((BATCH, n), dtype=torch.complex64, device=dev)
+    cap.scatter_(1, lead[:, None] + torch.arange(ocfg.sf_len, device=dev),
+                 sf * gain[:, None])
+    cfo = (2 * torch.rand(BATCH, generator=gen, device=dev) - 1) * cfo_max
+    phase = 2 * np.pi * cfo.double()[:, None] * torch.arange(n, device=dev) / ocfg.symbol_sz
+    cap = cap * torch.polar(torch.ones_like(phase), phase).to(torch.complex64)
+    return (awgn.awgn(cap, awgn.snr_to_noise_var(SNR_DB, device=dev), generator=gen), bits,
+            lead, cfo)
+
+
+def profile_search(search, card: str, reps: int = 3) -> None:
+    """Device time of the cell search split into the FFTs (cuFFT kernels)
+    and the rest, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            search()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    if total <= 0:
+        log(f"[{card}] profiler saw no device time: cell search split not measured")
+        return
+    fft = sum(e.self_device_time_total for e in kernels if "fft" in e.key.lower()) / 1e3 / reps
+    log(f"[{card}] cell search device time {total:.3f} ms per search of {BATCH}: FFT "
+        f"{fft:.3f} ms ({fft / total:.3f}), the rest {total - fft:.3f} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<4d} "
+            f"{e.key[:90]}")
+
+
+def dl_path(dev, gen, card: str) -> dict[str, int]:
+    """The downlink from samples at 100 PRB, under the default TURBO_KERNEL:
+    blind cell search of BATCH captures with the CFO from the CP (cell id,
+    frame phase and timing offset exact, |CFO error| < DL_CFO_TOL on every
+    capture), ``pdsch.decode`` of the grid it returns and
+    ``receive_pdsch_subframe`` of the aligned samples, every CRC and bit
+    checked.  Returns the launch counts of the search and decode."""
+    from srsran_4g_tpu_torch.models import grid, pdsch, ue_dl
+    from srsran_4g_tpu_torch.ops.ofdm import OfdmConfig, _symbol_offsets
+
+    os.environ.pop("TURBO_KERNEL", None)
+    cfg = pdsch.PdschConfig(cell=grid.CellConfig(nof_prb=100, cell_id=DL_CELL_ID, cfi=1),
+                            rnti=0x1234, subframe=DL_SUBFRAME, mod="64qam", tbs=75376)
+    plan = [(g.count, g.K) for g in cfg.plan.groups]
+    if plan != [(13, 5824)]:
+        log(f"DL path: segmentation {plan} (not 13 CBs of K=5824)")
+    ocfg = OfdmConfig(nof_prb=100)
+    t0 = time.perf_counter()
+    cap, bits, lead, cfo = dl_captures(dev, gen, cfg, DL_CFO)
+    torch.cuda.synchronize()
+    log(f"DL path: {BATCH} captures of {cap.shape[-1]} samples (lead 0..{DL_LEAD_MAX}, "
+        f"sf_len {ocfg.sf_len}, tail >= {DL_TAIL}), cell {DL_CELL_ID}, subframe "
+        f"{DL_SUBFRAME}, CFO within +-{DL_CFO}, {SNR_DB} dB: made in "
+        f"{time.perf_counter() - t0:.2f} s (first call)")
+
+    def search():
+        return ue_dl.cell_search(cap, 100)
+
+    def search_decode():
+        return pdsch.decode(cfg, search()["grid"], n_iter=N_ITER)
+
+    reset_counts()
+    found = search()
+    out = pdsch.decode(cfg, found["grid"], n_iter=N_ITER)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    off_err = found["offset"] - (lead + int(_symbol_offsets(ocfg)[6]))
+    cfo_err = float((found["cfo"] - cfo).abs().max())
+    checks = {"cell_id": bool((found["cell_id"] == DL_CELL_ID).all()),
+              "phase 1": bool((found["phase"] == 1).all()),
+              "offset exact": bool((off_err == 0).all()),
+              f"|CFO error| < {DL_CFO_TOL}": cfo_err < DL_CFO_TOL}
+    if not all(checks.values()):
+        raise AssertionError(f"DL cell search: {checks}; cell ids "
+                             f"{found['cell_id'].unique().tolist()}, offset errors "
+                             f"{off_err.unique().tolist()}, max |CFO error| {cfo_err}")
+    check_exact(out["crc_ok"], out["bits"], bits, "DL from samples")
+    moved = {name for name, n in counts.items() if n}
+    if moved != set(PATH_KERNELS["v9"]):
+        raise AssertionError(f"the DL path launched {counts}, expected only "
+                             f"{PATH_KERNELS['v9']}")
+    rx = ue_dl.receive_pdsch_subframe(cfg, found["sf_samples"], n_iter=N_ITER)
+    check_exact(rx["crc_ok"], rx["bits"], bits, "receive_pdsch_subframe on the aligned samples")
+    log(f"DL path: cell_id {DL_CELL_ID}, phase 1 and offset exact on "
+        f"all {BATCH}, max |CFO error| {cfo_err:.6f}; decode of the "
+        f"search grid: crc_ok {int(out['crc_ok'].sum())}/{BATCH}, bits equal; "
+        f"receive_pdsch_subframe on the aligned samples exact; launches {counts}")
+
+    t_search, t_all = [], []
+    for _ in range(PATH_REPS):
+        for fn, acc in ((search, t_search), (search_decode, t_all)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            acc.append(time.perf_counter() - t0)
+        check_exact(res["crc_ok"], res["bits"], bits, "DL from samples (timed)")
+    log(f"[{card}] DL cell search of {BATCH} captures: best of {PATH_REPS} "
+        f"{min(t_search) * 1e3:.2f} ms ({', '.join(f'{x * 1e3:.2f}' for x in t_search)})")
+    log(f"[{card}] DL search + decode of {BATCH} captures: best of {PATH_REPS} "
+        f"{min(t_all) * 1e3:.2f} ms ({', '.join(f'{x * 1e3:.2f}' for x in t_all)}) = "
+        f"{BATCH / min(t_all):.1f} subframes/s")
+    profile_search(search, card)
     return counts
 
 
@@ -457,23 +638,26 @@ def main() -> None:
         f"{BATCH / best:.1f} subframes/s")
     log(f"[{card}] per-stage (CUDA events, ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        + f"; turbo_map kernel {paths['v9']['map_windowed']} x "
-        f"{kern['turbo_map']['ms']:.4f} ms")
+        + f"; map_fused16 kernel {paths['v9']['map_fused16']} x "
+        f"{kern['map_fused16']['ms']:.4f} ms")
     profile_decode(cfg, rx, best, card)
     sweeps(cfg, tx, rx, bits, gen, card)
 
     # ---- the other TURBO_KERNEL paths, then the 2x2 lane -------------------
-    for kernel in ("v7", "v8", "v5", "v6"):
-        paths[kernel] = drive_path(cfg, rx, bits, kernel)
+    for kernel in PATH_KERNELS:
+        if kernel != "v9":
+            paths[kernel] = drive_path(cfg, rx, bits, kernel)
     time_paths(cfg, rx, bits, card)
     mimo_lane(dev, gen, card)
+    dl_path(dev, gen, card)
 
     b, k, l, t = BATCH * grp.count, grp.K, 208, 32
     kernels = []
     for route, (wrapper, _, source, line, path) in ROUTES.items():
         nbytes, ops = work(wrapper, b, k, l, t)
-        bound_ms, bound_by = bound(nbytes, ops)
-        log(f"{route} bound at B={b} K={k} L={l} T={t}: {nbytes} bytes, {ops} f32 ops "
+        kind = "bf16" if wrapper in BF16_WRAPPERS else "f32"
+        bound_ms, bound_by = bound(nbytes, ops, kind)
+        log(f"{route} bound at B={b} K={k} L={l} T={t}: {nbytes} bytes, {ops} {kind} ops "
             f"-> {bound_ms:.4f} ms ({bound_by}); kernel {kern[route]['ms']:.4f} ms")
         kernels.append(dict(
             name=route, route="cuda", source=f"srsran_4g_tpu_torch/csrc/{source}",
@@ -482,7 +666,9 @@ def main() -> None:
             shapes=dict(blocks=b, K=k, L=l, T=t, lanes=b * (k // l)),
             launches=paths[path][wrapper], max_abs_err=kern[route]["max_abs_err"],
             ms=kern[route]["ms"], plain_ms=kern[route]["plain_ms"], bound_ms=bound_ms,
-            bound_by=bound_by, bytes=nbytes, library_ms=None))
+            bound_by=bound_by, bytes=nbytes, library_ms=None,
+            **({"vs_turbo_map_max_abs_err": kern[route]["vs_turbo_map"]}
+               if "vs_turbo_map" in kern[route] else {})))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

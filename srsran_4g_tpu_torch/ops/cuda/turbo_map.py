@@ -1,16 +1,23 @@
 """Hopper kernels: the windowed max-log-MAP (BCJR) half-iteration.
 
 Port counterpart of ``srsran_4g_tpu/ops/pallas/turbo_map.py``.  The TPU
-kernels there compute one function in several dataflows; the port has three,
-each a CUDA kernel with a plain torch version of the same arithmetic:
+kernels there compute one function in several dataflows and two metric
+types; the port has a CUDA kernel for each, with a plain torch version of the
+same arithmetic:
 
-- ``map_windowed`` (``csrc/turbo_map.cu``): one radix-2 chain per lane with a
-  full-depth alpha store, for ``map_windowed_pallas_v9`` (the default),
-  ``map_windowed_pallas_r4`` and the shapes of ``map_windowed_pallas``; any L
-  and T.
+- ``map_windowed`` (``csrc/turbo_map.cu``): one radix-2 f32 chain per lane
+  with a full-depth alpha store, for ``map_windowed_pallas_r4`` (v4) and the
+  f32 body of ``map_windowed_pallas`` (v1, and every route's odd-L/T
+  shapes); any L and T.
+- ``map_windowed16`` (same file): that body at bf16, ``TURBO_KERNEL=bf16``.
+- ``map_v3`` (``csrc/turbo_v3.cu``): v1's f32 arithmetic as two chains per
+  thread on a pair of lanes, ``map_windowed_pallas``'s ``_make_kernel_v3``
+  (``TURBO_KERNEL=v3``).
 - ``map_fused`` (``csrc/turbo_fused.cu``): alpha and beta interleaved, LLRs
-  emitted against half-depth stores, for ``map_windowed_pallas_v7`` (radix 2)
-  and its ``radix4=True`` form v8 (radix 4).
+  emitted against half-depth stores, for ``map_windowed_pallas_v7`` (radix
+  2) and its ``radix4=True`` form v8 (radix 4).
+- ``map_fused16`` (same file): v7's radix-2 dataflow at bf16 with
+  normalisation in training, ``map_windowed_pallas_v9`` (the default).
 - ``sweep`` (``csrc/turbo_sweep.cu``) then ``emit`` (``csrc/turbo_emit.cu``):
   the interleaved recursions storing the even-position metrics, then a fully
   parallel emission, for ``map_windowed_pallas_v5`` (radix 4) +
@@ -19,6 +26,10 @@ each a CUDA kernel with a plain torch version of the same arithmetic:
 ``ops/turbo.kernel_route`` picks among them from ``TURBO_KERNEL`` as the JAX
 package does.  The source note in each .cu file says what bounds the kernel
 on the H100 and what its design does about that.
+
+The bf16 plain versions compute in torch bf16, which rounds every op to
+bf16 as XLA does, in the TPU kernels' order of operations, so they, the bf16
+kernels and the Pallas calls agree exactly.
 
 Every wrapper launches its kernel on a CUDA tensor and runs its plain version
 (``*_ref``) only on a CPU tensor; there is no fallback from one to the other.
@@ -39,11 +50,10 @@ from srsran_4g_tpu_torch.ops.turbo import (
 # --- the single-chain half-iteration (turbo_map.cu) -------------------------
 
 
-def map_windowed_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
-                     nof_b: int, nof_w: int) -> torch.Tensor:
-    """Plain torch version of ``map_windowed``, same contract (see the .cu
-    file).  gs_ext/gp_ext (L+2T, N), a_init/b_init (8, N) float32 → LLRs
-    (L, N)."""
+def _single_chain(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b,
+                  nof_w, llr):
+    """The v1 dataflow in the dtype of its inputs: alpha through training and
+    body into a full-depth store, then beta with ``llr`` per position."""
     n = gs_ext.shape[1]
     m_a, m_b = _train_masks(n, nof_b, nof_w, gs_ext.device)
     alpha = a_init.t()  # (N, 8)
@@ -58,10 +68,46 @@ def map_windowed_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
     out = gs_ext.new_empty((l_win, n))
     for pos in range(l_win - 1, -1, -1):
         r = t_train + pos
-        out[pos] = _llr_from_metrics(alphas[pos], beta, gs_ext[r], gp_ext[r])
+        out[pos] = llr(alphas[pos], beta, gs_ext[r], gp_ext[r])
         if pos:
             beta = _beta_step(beta, gs_ext[r], gp_ext[r])
     return out
+
+
+def _llr_ab(alpha, beta_next, g_sys, g_par):
+    """The LLR in the JAX v1 kernel's order: (alpha + beta) + parity term."""
+    t = _step_tables(alpha.device, alpha.dtype)
+    gp = g_par[..., None]
+    m0 = (alpha + beta_next[..., t["ns0"]] + t["p0"] * gp).amax(dim=-1)
+    m1 = (alpha + beta_next[..., t["ns1"]] + t["p1"] * gp).amax(dim=-1)
+    return m1 + g_sys - m0
+
+
+def _bf16(*tensors):
+    return tuple(x.to(torch.bfloat16) for x in tensors)
+
+
+def map_windowed_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
+                     nof_b: int, nof_w: int) -> torch.Tensor:
+    """Plain torch version of ``map_windowed``, same contract (see the .cu
+    file).  gs_ext/gp_ext (L+2T, N), a_init/b_init (8, N) float32 → LLRs
+    (L, N)."""
+    return _single_chain(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b,
+                         nof_w, _llr_from_metrics)
+
+
+def map_windowed16_ref(gs_ext, gp_ext, a_init, b_init, t_train: int,
+                       l_win: int, nof_b: int, nof_w: int) -> torch.Tensor:
+    """Plain torch version of ``map_windowed16``: the v1 dataflow with the
+    inputs rounded to bf16 and every op in bf16 (``_make_kernel(dtype=bf16)``),
+    LLRs bf16 widened to float32."""
+    return _single_chain(*_bf16(gs_ext, gp_ext, a_init, b_init), t_train, l_win,
+                         nof_b, nof_w, _llr_ab).float()
+
+
+# v3 changes only which lanes share a thread, not any lane's arithmetic: its
+# plain version is the single chain's.
+map_v3_ref = map_windowed_ref
 
 
 def map_windowed(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
@@ -88,6 +134,50 @@ def map_windowed(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
 map_windowed.launches = 0
 
 
+def map_windowed16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
+                   a_init: torch.Tensor, b_init: torch.Tensor, t_train: int,
+                   l_win: int, nof_b: int, nof_w: int) -> torch.Tensor:
+    """``map_windowed`` with bf16 metrics (``TURBO_KERNEL=bf16``): the same
+    float32 inputs, rounded to bf16 in the kernel → LLRs (L, N) float32
+    holding bf16 values.  CUDA tensors go to the kernel, CPU tensors to
+    ``map_windowed16_ref``."""
+    args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
+    if not _check_windowed("map_windowed16", *args):
+        return map_windowed16_ref(*args)
+    n = gs_ext.shape[1]
+    out = gs_ext.new_empty((l_win, n))
+    astore = gs_ext.new_empty((l_win, 8, n), dtype=torch.bfloat16)
+    _launch("turbo_map", "turbo_map_windowed16", 6, 5, gs_ext, gp_ext, a_init,
+            b_init, astore, out, n, t_train, l_win, nof_b, nof_w)
+    map_windowed16.launches += 1
+    return out
+
+
+map_windowed16.launches = 0
+
+
+def map_v3(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
+           b_init: torch.Tensor, t_train: int, l_win: int, nof_b: int,
+           nof_w: int) -> torch.Tensor:
+    """``map_windowed``'s function as two chains per thread on a pair of
+    lanes (``TURBO_KERNEL=v3``) → LLRs (L, N) float32, equal to
+    ``map_windowed``'s.  CUDA tensors go to the kernel, CPU tensors to
+    ``map_v3_ref``."""
+    args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
+    if not _check_windowed("map_v3", *args):
+        return map_v3_ref(*args)
+    n = gs_ext.shape[1]
+    out = gs_ext.new_empty((l_win, n))
+    store = gs_ext.new_empty((l_win, 8, n))
+    _launch("turbo_v3", "turbo_map_v3", 6, 5, gs_ext, gp_ext, a_init, b_init,
+            store, out, n, t_train, l_win, nof_b, nof_w)
+    map_v3.launches += 1
+    return out
+
+
+map_v3.launches = 0
+
+
 # --- plain steps of the paired dataflows (trellis.cuh) ----------------------
 # Metrics are (N, 8).  Gamma terms are added in the order of the JAX
 # states-as-registers kernels; a 0/1 coefficient times a gamma adds ±0, which
@@ -96,7 +186,7 @@ map_windowed.launches = 0
 
 def _astep2(a, gs, gp):
     """Radix-2 alpha step, unnormalised (_make_kernel_v6 astep)."""
-    t = _step_tables(a.device)
+    t = _step_tables(a.device, a.dtype)
     gs, gp = gs[:, None], gp[:, None]
     return torch.maximum(a[:, t["pred0"]] + (t["u0"] * gs + t["q0"] * gp),
                          a[:, t["pred1"]] + (t["u1"] * gs + t["q1"] * gp))
@@ -104,7 +194,7 @@ def _astep2(a, gs, gp):
 
 def _bstep2(b, gs, gp):
     """Radix-2 beta step, beta_{k+1} → beta_k, unnormalised."""
-    t = _step_tables(b.device)
+    t = _step_tables(b.device, b.dtype)
     gs, gp = gs[:, None], gp[:, None]
     return torch.maximum(b[:, t["ns0"]] + t["p0"] * gp,
                          b[:, t["ns1"]] + (gs + t["p1"] * gp))
@@ -151,7 +241,7 @@ def _advance_b(b, g, radix: int, fused: bool):
 
 def _emit2(a, b1, gs, gp):
     """LLR at k from alpha_k and beta_{k+1}, the fused kernels' emission."""
-    t = _step_tables(a.device)
+    t = _step_tables(a.device, a.dtype)
     gp_ = gp[:, None]
     m1 = (a + (b1[:, t["ns1"]] + t["p1"] * gp_)).amax(dim=-1)
     m0 = (a + (b1[:, t["ns0"]] + t["p0"] * gp_)).amax(dim=-1)
@@ -169,14 +259,17 @@ def _train_masks(n: int, nof_b: int, nof_w: int, device):
 
 
 def _train(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w,
-           radix, fused):
-    """Both chains through their training rows, frozen on boundary windows."""
+           radix, fused, train_norm=False):
+    """Both chains through their training rows, frozen on boundary windows;
+    ``train_norm`` subtracts state 0 after every pair (v9)."""
     m_a, m_b = _train_masks(gs_ext.shape[1], nof_b, nof_w, gs_ext.device)
     s_all = l_win + 2 * t_train
     a, b = a_init.t(), b_init.t()
     for i in range(t_train // 2):
         na = _advance_a(a, _pair(gs_ext, gp_ext, 2 * i), radix, fused)
         nb = _advance_b(b, _pair(gs_ext, gp_ext, s_all - 2 - 2 * i), radix, fused)
+        if train_norm:
+            na, nb = _norm0(na), _norm0(nb)
         a, b = torch.where(m_a, na, a), torch.where(m_b, nb, b)
     return a, b
 
@@ -185,14 +278,15 @@ def _train(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w,
 
 
 def map_fused_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
-                  nof_b: int, nof_w: int, radix: int) -> torch.Tensor:
+                  nof_b: int, nof_w: int, radix: int,
+                  train_norm: bool = False) -> torch.Tensor:
     """Plain torch version of ``map_fused`` (``_make_kernel_v7``), same
-    contract.  → LLRs (L, N)."""
+    contract, in the dtype of its inputs.  → LLRs (L, N)."""
     n = gs_ext.shape[1]
     l2 = l_win // 2
     h = l2 // 2
     a, b = _train(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w,
-                  radix, fused=True)
+                  radix, fused=True, train_norm=train_norm)
     astore, bstore = [], []
     for j in range(h):  # phase 1: alpha(2j), beta(L-2j)
         astore.append(a)
@@ -232,9 +326,7 @@ def map_fused(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
     """
     args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
     _check_radix("map_fused", radix)
-    if l_win % 4 or t_train % 2:
-        raise ValueError(f"map_fused needs L % 4 == 0 and T even, not L={l_win}, "
-                         f"T={t_train}")
+    _check_fused_shape("map_fused", l_win, t_train)
     if not _check_windowed("map_fused", *args):
         return map_fused_ref(*args, radix)
     n = gs_ext.shape[1]
@@ -248,6 +340,43 @@ def map_fused(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
 
 
 map_fused.launches = 0
+
+
+def map_fused16_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
+                    nof_b: int, nof_w: int) -> torch.Tensor:
+    """Plain torch version of ``map_fused16`` (``map_windowed_pallas_v9``):
+    the radix-2 fused dataflow on inputs rounded to bf16, every op in bf16,
+    state 0 subtracted after every training pair too; LLRs widened to
+    float32."""
+    return map_fused_ref(*_bf16(gs_ext, gp_ext, a_init, b_init), t_train, l_win,
+                         nof_b, nof_w, radix=2, train_norm=True).float()
+
+
+def map_fused16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
+                a_init: torch.Tensor, b_init: torch.Tensor, t_train: int,
+                l_win: int, nof_b: int, nof_w: int) -> torch.Tensor:
+    """v9: the radix-2 fused half-iteration with bf16 metrics and stores →
+    LLRs (L, N) float32 holding bf16 values.
+
+    Takes ``map_windowed``'s float32 inputs (rounded to bf16 in the kernel);
+    needs L % 4 == 0 and T even.  CUDA tensors go to the kernel, CPU tensors
+    to ``map_fused16_ref``.
+    """
+    args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
+    _check_fused_shape("map_fused16", l_win, t_train)
+    if not _check_windowed("map_fused16", *args):
+        return map_fused16_ref(*args)
+    n = gs_ext.shape[1]
+    out = gs_ext.new_empty((l_win, n))
+    astore = gs_ext.new_empty((l_win // 4, 8, n), dtype=torch.bfloat16)
+    bstore = gs_ext.new_empty((l_win // 4, 8, n), dtype=torch.bfloat16)
+    _launch("turbo_fused", "turbo_map_fused16", 7, 5, gs_ext, gp_ext, a_init,
+            b_init, astore, bstore, out, n, t_train, l_win, nof_b, nof_w)
+    map_fused16.launches += 1
+    return out
+
+
+map_fused16.launches = 0
 
 
 # --- the split sweep / emission half-iteration (turbo_sweep/emit.cu) -------
@@ -306,7 +435,7 @@ sweep.launches = 0
 def emit_ref(g2s, g2p, astore, bstore) -> torch.Tensor:
     """Plain torch version of ``emit`` (``_make_emit_kernel``), same contract,
     all position pairs at once."""
-    t = _step_tables(astore.device)
+    t = _step_tables(astore.device, astore.dtype)
     ae, be = astore.transpose(1, 2), bstore.transpose(1, 2)  # (L/2, N, 8)
     ges, gos = g2s[:, 0, :, None], g2s[:, 1, :, None]
     gep, gop = g2p[:, 0, :, None], g2p[:, 1, :, None]
@@ -351,6 +480,12 @@ emit.launches = 0
 
 
 # --- input checks and launches ----------------------------------------------
+
+
+def _check_fused_shape(name: str, l_win: int, t_train: int) -> None:
+    if l_win % 4 or t_train % 2:
+        raise ValueError(f"{name} needs L % 4 == 0 and T even, not L={l_win}, "
+                         f"T={t_train}")
 
 
 def _check_radix(name: str, radix: int) -> None:

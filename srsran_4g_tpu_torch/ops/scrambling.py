@@ -14,6 +14,11 @@ def pdsch_cinit(rnti: int, codeword: int, subframe: int, cell_id: int) -> int:
     return (rnti << 14) + (codeword << 13) + (subframe << 9) + cell_id
 
 
+def pcfich_cinit(subframe: int, cell_id: int) -> int:
+    """c_init for PCFICH scrambling (TS 36.211 §6.7.1)."""
+    return (subframe + 1) * (2 * cell_id + 1) * (1 << 9) + cell_id
+
+
 def scramble_bits(bits: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
     """bits, seq: (..., N) 0/1 → XOR, int8."""
     return torch.bitwise_xor(bits.to(torch.int8), seq.to(torch.int8))

@@ -151,10 +151,11 @@ def turbo_encode(bits: torch.Tensor) -> torch.Tensor:
 # --- max-log-MAP half-iteration ---------------------------------------------
 
 
-@functools.lru_cache(maxsize=8)
-def _step_tables(device: torch.device) -> dict[str, torch.Tensor]:
+@functools.lru_cache(maxsize=16)
+def _step_tables(device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """Predecessor (alpha) and successor (beta) tables of the trellis, with
-    their input/parity bits as float32 0/1 coefficients."""
+    their input/parity bits as 0/1 coefficients of the metrics' dtype."""
     t = _trellis()
     ns, par = t["ns"], t["par"]
     pred = np.zeros((8, 2), np.int64)
@@ -167,18 +168,18 @@ def _step_tables(device: torch.device) -> dict[str, torch.Tensor]:
             pred[ns[s, u], j], pred_u[ns[s, u], j] = s, u
             pred_p[ns[s, u], j] = par[s, u]
             fill[ns[s, u]] += 1
-    f32 = dict(dtype=torch.float32, device=device)
+    coef = dict(dtype=dtype, device=device)
     return dict(
         pred0=torch.as_tensor(pred[:, 0], device=device),
         pred1=torch.as_tensor(pred[:, 1], device=device),
-        u0=torch.as_tensor(pred_u[:, 0], **f32),
-        u1=torch.as_tensor(pred_u[:, 1], **f32),
-        q0=torch.as_tensor(pred_p[:, 0], **f32),
-        q1=torch.as_tensor(pred_p[:, 1], **f32),
+        u0=torch.as_tensor(pred_u[:, 0], **coef),
+        u1=torch.as_tensor(pred_u[:, 1], **coef),
+        q0=torch.as_tensor(pred_p[:, 0], **coef),
+        q1=torch.as_tensor(pred_p[:, 1], **coef),
         ns0=torch.as_tensor(ns[:, 0], device=device),
         ns1=torch.as_tensor(ns[:, 1], device=device),
-        p0=torch.as_tensor(par[:, 0], **f32),
-        p1=torch.as_tensor(par[:, 1], **f32),
+        p0=torch.as_tensor(par[:, 0], **coef),
+        p1=torch.as_tensor(par[:, 1], **coef),
     )
 
 
@@ -208,7 +209,7 @@ def _r4_tables(device: torch.device) -> dict:
 def _alpha_step(alpha, g_sys, g_par):
     """alpha_k (..., 8) → alpha_{k+1}, normalised to its max.
     g_sys/g_par: (...,) branch LLR terms."""
-    t = _step_tables(alpha.device)
+    t = _step_tables(alpha.device, alpha.dtype)
     gs, gp = g_sys[..., None], g_par[..., None]
     c0 = alpha[..., t["pred0"]] + t["u0"] * gs + t["q0"] * gp
     c1 = alpha[..., t["pred1"]] + t["u1"] * gs + t["q1"] * gp
@@ -220,7 +221,7 @@ def _alpha_step(alpha, g_sys, g_par):
 
 def _beta_step(beta, g_sys, g_par):
     """beta_{k+1} (..., 8) → beta_k, normalised to its max."""
-    t = _step_tables(beta.device)
+    t = _step_tables(beta.device, beta.dtype)
     gs, gp = g_sys[..., None], g_par[..., None]
     c0 = beta[..., t["ns0"]] + t["p0"] * gp
     c1 = beta[..., t["ns1"]] + gs + t["p1"] * gp
@@ -230,7 +231,7 @@ def _beta_step(beta, g_sys, g_par):
 
 def _llr_from_metrics(alpha, beta_next, g_sys, g_par):
     """A-posteriori LLR given alpha_k, beta_{k+1} (..., 8) and gamma terms."""
-    t = _step_tables(alpha.device)
+    t = _step_tables(alpha.device, alpha.dtype)
     gp = g_par[..., None]
     m0 = (alpha + t["p0"] * gp + beta_next[..., t["ns0"]]).amax(dim=-1)
     m1 = (alpha + t["p1"] * gp + beta_next[..., t["ns1"]]).amax(dim=-1)
@@ -281,28 +282,31 @@ def _windowed_inputs(lsa, lp, tail_sys, tail_par, win_len: int, train_len: int):
 
 def kernel_route(name: str, l: int, t: int) -> str:
     """The dataflow that ``TURBO_KERNEL=name`` selects at window L, training
-    T: the JAX package's rule (``srsran_4g_tpu/ops/turbo.py:433-452``).
+    T: the JAX package's rule (``srsran_4g_tpu/ops/turbo.py:433-452`` and
+    ``ops/pallas/turbo_map.py:1456-1478``).
 
     Returns "v4"…"v9" for the paired family (even L, even T >= 2; v7, v8
-    and v9 need L % 4 == 0 and otherwise become v4) and "v1" for everything
-    else, any unknown name included.  JAX's one further rule, v6 → v7 when
-    v6's stores would not fit the TPU's 15 MB scoped-VMEM budget, is left
-    out: it is a TPU memory limit that Hopper does not have, so the port
-    runs v6 as asked.
+    and v9 need L % 4 == 0 and otherwise become v4); "v3" and "bf16", which
+    name bodies of ``map_windowed_pallas``, at every shape; and "v1" for
+    everything else, any unknown name included.  JAX's one further rule, v6
+    → v7 when v6's stores would not fit the TPU's 15 MB scoped-VMEM budget,
+    is left out: it is a TPU memory limit that Hopper does not have, so the
+    port runs v6 as asked.
     """
     if name in ("v7", "v8", "v9") and l % 4:
         name = "v4"
     if name in ("v4", "v5", "v6", "v7", "v8", "v9") and l % 2 == 0 \
             and t % 2 == 0 and t >= 2:
         return name
-    return "v1"
+    return name if name in ("v3", "bf16") else "v1"
 
 
 def _map_windowed(lsa, lp, tail_sys, tail_par, win_len: int, train_len: int):
     """One windowed max-log BCJR half-iteration over (B, K) code blocks →
     a-posteriori LLRs (B, K), in the dataflow ``TURBO_KERNEL`` names
-    (default v9): v7/v8 → ``map_fused`` at radix 2/4, v5/v6 → ``sweep`` at
-    radix 4/2 then ``emit``, and v1, v4, v9 → ``map_windowed``."""
+    (default v9): v9 → ``map_fused16`` (bf16), v7/v8 → ``map_fused`` at
+    radix 2/4, v5/v6 → ``sweep`` at radix 4/2 then ``emit``, bf16 →
+    ``map_windowed16``, v3 → ``map_v3``, and v1, v4 → ``map_windowed``."""
     from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 
     b, k = lsa.shape
@@ -311,13 +315,19 @@ def _map_windowed(lsa, lp, tail_sys, tail_par, win_len: int, train_len: int):
     gs_ext, gp_ext, a_init, b_init, w = _windowed_inputs(
         lsa, lp, tail_sys, tail_par, l, t)
     args = (gs_ext, gp_ext, a_init, b_init, t, l, b, w)
-    if route in ("v7", "v8"):
+    if route == "v9":
+        llr = tm.map_fused16(*args)
+    elif route in ("v7", "v8"):
         llr = tm.map_fused(*args, radix=2 if route == "v7" else 4)
     elif route in ("v5", "v6"):
         astore, bstore = tm.sweep(*args, radix=4 if route == "v5" else 2)
         n = w * b
         llr = tm.emit(gs_ext[t:t + l].view(l // 2, 2, n),
                       gp_ext[t:t + l].view(l // 2, 2, n), astore, bstore)
+    elif route == "bf16":
+        llr = tm.map_windowed16(*args)
+    elif route == "v3":
+        llr = tm.map_v3(*args)
     else:
         llr = tm.map_windowed(*args)
     return llr.reshape(l, w, b).permute(2, 1, 0).reshape(b, k)

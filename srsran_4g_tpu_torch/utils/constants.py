@@ -1,4 +1,4 @@
-"""LTE dimension tables and 3GPP constants used by the PDSCH slice.
+"""LTE dimension tables and 3GPP constants used by the port.
 
 Port counterpart of ``srsran_4g_tpu/utils/constants.py`` (a copy of the
 tables this package needs; the port imports nothing from the JAX package).
@@ -20,7 +20,42 @@ CP_EXT_NSYMB = 6  # OFDM symbols per slot, extended CP
 NSLOTS_X_SF = 2
 NSYMB_SF_NORM = CP_NORM_NSYMB * NSLOTS_X_SF  # 14
 NSYMB_SF_EXT = CP_EXT_NSYMB * NSLOTS_X_SF  # 12
+SF_PER_FRAME = 10
 MAX_PRB = 110
+
+# DFT size per channel bandwidth (reference: phy_common.c srsran_symbol_sz).
+SYMBOL_SZ_BY_PRB = {6: 128, 15: 256, 25: 512, 50: 1024, 75: 1536, 100: 2048}
+
+
+def symbol_sz(nof_prb: int) -> int:
+    """DFT size for a given number of PRB (TS 36.104 sample rates / 15 kHz)."""
+    if nof_prb in SYMBOL_SZ_BY_PRB:
+        return SYMBOL_SZ_BY_PRB[nof_prb]
+    # Generic rule used by the reference for non-standard PRB counts:
+    # smallest power of two with >= nof_prb*NRE subcarriers of occupancy.
+    n = 128
+    while n < nof_prb * NRE / 0.875:
+        n *= 2
+    return n
+
+
+def cp_len_norm(symbol_idx_in_slot: int, symb_sz: int) -> int:
+    """Normal CP length in samples for the given symbol of a slot."""
+    return (160 if symbol_idx_in_slot == 0 else 144) * symb_sz // 2048
+
+
+def cp_len_ext(symb_sz: int) -> int:
+    return 512 * symb_sz // 2048
+
+
+def slot_len(symb_sz: int) -> int:
+    """Samples per 0.5 ms slot (normal CP)."""
+    return 15360 * symb_sz // 2048
+
+
+def sf_len(symb_sz: int) -> int:
+    """Samples per 1 ms subframe (normal CP)."""
+    return 2 * slot_len(symb_sz)
 
 # --- Turbo code-block sizes (TS 36.212 Table 5.1.3-3) -----------------------
 

@@ -1,8 +1,10 @@
 """The port on the card: each CUDA half-iteration kernel (turbo_map,
-map_fused at radix 2 and 4, sweep at radix 2 and 4, emit) against its plain
-torch version (atol 1e-3, f32 with the same arithmetic), and the PDSCH and
-TM4 2x2 receivers on CUDA against the same receivers on the CPU (identical
-bits and crc_ok).
+map_fused at radix 2 and 4, sweep at radix 2 and 4, emit, map_v3) against
+its plain torch version (atol 1e-3, f32 with the same arithmetic; map_v3
+also equal to turbo_map's LLRs), the bf16 kernels (map_fused16,
+map_windowed16) equal to their plain versions, and the PDSCH, TM4 2x2 and
+DL-from-samples receivers on CUDA against the same receivers on the CPU
+(identical ids, bits and crc_ok).
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from srsran_4g_tpu_torch.channel import awgn
-from srsran_4g_tpu_torch.models import grid, pdsch, pdsch_mimo
+from srsran_4g_tpu_torch.models import enb_dl, grid, pdsch, pdsch_mimo, ue_dl
 from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import turbo_map
 
@@ -80,6 +82,67 @@ def test_sweep_and_emit_match_plain(cuda_device, b, k, l, t, radix):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16)])
+def test_map_fused16_equals_plain(cuda_device, b, k, l, t):
+    args = _inputs(cuda_device, b, k, l, t)
+    before = turbo_map.map_fused16.launches
+    got = turbo_map.map_fused16(*args)
+    torch.cuda.synchronize()
+    assert turbo_map.map_fused16.launches == before + 1
+    want = turbo_map.map_fused16_ref(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (8, 424, 106, 32),
+                                     (4, 512, 64, 31), (2, 40, 40, 0)])
+def test_map_windowed16_equals_plain(cuda_device, b, k, l, t):
+    args = _inputs(cuda_device, b, k, l, t)
+    before = turbo_map.map_windowed16.launches
+    got = turbo_map.map_windowed16(*args)
+    torch.cuda.synchronize()
+    assert turbo_map.map_windowed16.launches == before + 1
+    want = turbo_map.map_windowed16_ref(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (3, 424, 106, 31), (3, 40, 40, 0)])
+def test_map_v3_matches_plain_and_turbo_map(cuda_device, b, k, l, t):
+    args = _inputs(cuda_device, b, k, l, t)
+    before = turbo_map.map_v3.launches
+    got = turbo_map.map_v3(*args)
+    torch.cuda.synchronize()
+    assert turbo_map.map_v3.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), turbo_map.map_windowed(*args).cpu().numpy())
+    want = turbo_map.map_v3_ref(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
+
+
+def test_dl_from_samples_on_card_matches_cpu(cuda_device):
+    cell = grid.CellConfig(nof_prb=25, cell_id=124, cfi=1)
+    cfg = pdsch.PdschConfig(cell=cell, rnti=0x1234, subframe=5, mod="16qam", tbs=2000)
+    rng = np.random.default_rng(4)
+    bits = rng.integers(0, 2, size=(3, cfg.tbs)).astype(np.int8)
+    sf = enb_dl.subframe_to_samples(cell, enb_dl.assemble_subframe(cfg, bits)).cpu().numpy()
+    n = sf.shape[-1] + 900
+    cap = np.zeros((3, n), np.complex64)
+    for i, lead in enumerate((17, 300, 499)):
+        cap[i, lead:lead + sf.shape[-1]] = sf[i] * np.exp(1j * 0.7 * i)
+    cap *= np.exp(2j * np.pi * 0.04 * np.arange(n) / 512).astype(np.complex64)
+    cap += ((rng.standard_normal(cap.shape) + 1j * rng.standard_normal(cap.shape))
+            * np.sqrt(5e-4)).astype(np.complex64)
+    found = {d: ue_dl.cell_search(torch.as_tensor(cap, device=d), 25)
+             for d in (cuda_device, torch.device("cpu"))}
+    for key in ("cell_id", "phase", "offset"):
+        np.testing.assert_array_equal(found[cuda_device][key].cpu().numpy(),
+                                      found[torch.device("cpu")][key].numpy(), err_msg=key)
+    np.testing.assert_array_equal(found[cuda_device]["cell_id"].cpu().numpy(), 124)
+    np.testing.assert_array_equal(found[cuda_device]["offset"].cpu().numpy(),
+                                  np.array([17, 300, 499]) + 3328)  # + symbol 6's body at 25 PRB
+    out = pdsch.decode(cfg, found[cuda_device]["grid"], n_iter=4)
+    assert bool(out["crc_ok"].all())
+    np.testing.assert_array_equal(out["bits"].cpu().numpy(), bits)
+
+
 def test_tm4_on_card_matches_cpu(cuda_device):
     cfg = pdsch_mimo.PdschMimoConfig(
         cell=grid.CellConfig(nof_prb=25, cell_id=123, cfi=1, nof_ports=2), rnti=0x1234,
@@ -91,9 +154,9 @@ def test_tm4_on_card_matches_cpu(cuda_device):
                         dtype=torch.complex64, device=cuda_device)
     rx = awgn.awgn(torch.einsum("rt,btsk->brsk", hmat, tx), awgn.snr_to_noise_var(20.0),
                    torch.Generator(device=cuda_device).manual_seed(3))
-    before = turbo_map.map_windowed.launches
+    before = turbo_map.map_fused16.launches  # the default route, v9
     out_gpu = pdsch_mimo.decode(cfg, rx, n_iter=4)
-    assert turbo_map.map_windowed.launches > before
+    assert turbo_map.map_fused16.launches > before
     out_cpu = pdsch_mimo.decode(cfg, rx.cpu(), n_iter=4)
     for key in ("bits0", "bits1", "crc_ok0", "crc_ok1"):
         np.testing.assert_array_equal(out_gpu[key].cpu().numpy(), out_cpu[key].numpy(),
@@ -111,9 +174,9 @@ def test_pdsch_on_card_matches_cpu(cuda_device):
     assert tx.device.type == "cuda"
     rx = awgn.awgn(tx, awgn.snr_to_noise_var(8.0),
                    torch.Generator(device=cuda_device).manual_seed(1))
-    before = turbo_map.map_windowed.launches
+    before = turbo_map.map_fused16.launches  # the default route, v9
     out_gpu = pdsch.decode(cfg, rx, n_iter=4)
-    assert turbo_map.map_windowed.launches > before
+    assert turbo_map.map_fused16.launches > before
     out_cpu = pdsch.decode(cfg, rx.cpu(), n_iter=4)
     np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), out_cpu["bits"].numpy())
     np.testing.assert_array_equal(out_gpu["crc_ok"].cpu().numpy(), out_cpu["crc_ok"].numpy())

@@ -6,6 +6,9 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
+# modules each slice added, which the walk below must find and import
+EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm",
+            "ops.zadoff_chu", "models.sync", "models.pcfich", "models.enb_dl", "models.ue_dl")
 
 _CHECK = """
 import importlib, pkgutil, sys
@@ -24,7 +27,8 @@ def test_port_imports_without_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n_modules, bad = res.stdout.split(maxsplit=1)
-    expected = sum(1 for _ in pkgutil.walk_packages(
-        [str(REPO / "srsran_4g_tpu_torch")], "srsran_4g_tpu_torch."))
-    assert int(n_modules) == expected >= 20
+    walked = {m.name for m in pkgutil.walk_packages(
+        [str(REPO / "srsran_4g_tpu_torch")], "srsran_4g_tpu_torch.")}
+    assert int(n_modules) == len(walked) >= 20
+    assert {"srsran_4g_tpu_torch." + m for m in EXPECTED} <= walked
     assert bad.strip() == "[]"

@@ -10,9 +10,15 @@ buffers, so the kernels' indexing, schedules and arithmetic are checked
 here; only the card (tests/test_torch_cuda.py, chip_smoke.py) shows that
 nvcc builds them and that they run right in parallel.
 
-Tolerance: atol 1e-3, as on the card (f32, the same arithmetic in the same
-order; in practice the results are identical).  Skips without a host C++
-compiler.
+A stand-in ``cuda_bf16.h`` does the same for the 16-bit kernels: its
+``__nv_bfloat16`` is the 16-bit pattern, and ``__hadd``/``__hsub`` add or
+subtract in float and round to bf16 (round to nearest even) after every op,
+which is what the card's bf16 instructions and torch's bf16 ops compute.
+
+Tolerance: atol 1e-3 for the f32 kernels, as on the card (the same
+arithmetic in the same order; in practice the results are identical); the
+bf16 kernels and the v3 kernel must equal their plain versions exactly.
+Skips without a host C++ compiler.
 """
 
 import ctypes
@@ -64,14 +70,49 @@ static void host_launch(dim3 grid, dim3 block, F kernel) {
 }
 """
 
-# kernel<<<grid, block, smem, stream>>>(args);  ->  host_launch(grid, block, [&] { kernel(args); });
-_LAUNCH = re.compile(r"([\w<>]+?)<<<\s*([^,]+?)\s*,\s*([^,]+?)\s*,[^>]*>>>\s*\(([^;]*)\);", re.S)
+_CUDA_BF16 = r"""
+#pragma once
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+struct __nv_bfloat16 {
+  uint16_t x;
+};
+static inline float __bfloat162float(__nv_bfloat16 h) {
+  uint32_t u = (uint32_t)h.x << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+static inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  u += 0x7fffu + ((u >> 16) & 1u);  // round to nearest even (finite values)
+  return __nv_bfloat16{(uint16_t)(u >> 16)};
+}
+static inline __nv_bfloat16 __hadd(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
+}
+static inline __nv_bfloat16 __hsub(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(__bfloat162float(a) - __bfloat162float(b));
+}
+static inline __nv_bfloat16 __hmax(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(fmaxf(__bfloat162float(a), __bfloat162float(b)));
+}
+"""
 
-# source -> (C entry, pointer args, int args), as ops/cuda/turbo_map.py binds them
-_ENTRIES = {"turbo_map": ("turbo_map_windowed", 6, 5),
-            "turbo_fused": ("turbo_map_fused", 7, 6),
+# kernel<<<grid, block, smem, stream>>>(args);  ->  host_launch(grid, block, [&] { kernel(args); });
+_LAUNCH = re.compile(
+    r"([\w:]+(?:<[^<>;]*>)?)<<<\s*([^,]+?)\s*,\s*([^,]+?)\s*,[^>]*>>>\s*\(([^;]*)\);", re.S)
+
+# C entry -> (source, pointer args, int args), as ops/cuda/turbo_map.py binds them
+_ENTRIES = {"turbo_map_windowed": ("turbo_map", 6, 5),
+            "turbo_map_windowed16": ("turbo_map", 6, 5),
+            "turbo_map_fused": ("turbo_fused", 7, 6),
+            "turbo_map_fused16": ("turbo_fused", 7, 5),
             "turbo_sweep": ("turbo_sweep", 6, 6),
-            "turbo_emit": ("turbo_emit", 5, 2)}
+            "turbo_emit": ("turbo_emit", 5, 2),
+            "turbo_map_v3": ("turbo_v3", 6, 5)}
 
 
 @pytest.fixture(scope="module")
@@ -82,10 +123,11 @@ def host_kernels(tmp_path_factory):
         pytest.skip("needs a host C++ compiler")
     out = tmp_path_factory.mktemp("host_kernels")
     (out / "cuda_runtime.h").write_text(_CUDA_RUNTIME)
+    (out / "cuda_bf16.h").write_text(_CUDA_BF16)
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, out / header.name)
     procs = {}
-    for name in _ENTRIES:
+    for name in {source for source, _, _ in _ENTRIES.values()}:
         src = (CSRC / f"{name}.cu").read_text()
         src, n_launch = _LAUNCH.subn(r"host_launch(\2, \3, [&] { \1(\4); });", src)
         assert n_launch, f"{name}.cu: no kernel launch found"
@@ -94,22 +136,23 @@ def host_kernels(tmp_path_factory):
                "-I", str(out), "-o", str(out / f"lib{name}.so"), str(out / f"{name}.cpp")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
-    fns = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, f"{name}.cu does not build for the host:\n{log}"
-        symbol, n_ptr, n_int = _ENTRIES[name]
+    fns = {}
+    for symbol, (name, n_ptr, n_int) in _ENTRIES.items():
         fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[symbol] = fn
     return fns
 
 
 def _run(fn, *args):
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     ints = [a for a in args if not isinstance(a, torch.Tensor)]
-    assert all(t.is_contiguous() and t.dtype == torch.float32 for t in tensors)
+    assert all(t.is_contiguous() and t.dtype in (torch.float32, torch.bfloat16)
+               for t in tensors)
     assert fn(*(t.data_ptr() for t in tensors), *ints, None) == 0
 
 
@@ -135,7 +178,7 @@ def test_turbo_map_source_matches_plain(host_kernels, b, k, l, t):
     args = _inputs(b, k, l, t)
     gs, n = args[0], args[0].shape[1]
     out, astore = gs.new_empty((l, n)), gs.new_empty((l, 8, n))
-    _run(host_kernels["turbo_map"], *args[:4], astore, out, n, t, l, b, k // l)
+    _run(host_kernels["turbo_map_windowed"], *args[:4], astore, out, n, t, l, b, k // l)
     _close(out, tm.map_windowed_ref(*args))
 
 
@@ -146,7 +189,7 @@ def test_turbo_fused_source_matches_plain(host_kernels, radix):
     gs, n = args[0], args[0].shape[1]
     out = gs.new_empty((l, n))
     stores = [gs.new_empty((l // 4, 8, n)) for _ in range(2)]
-    _run(host_kernels["turbo_fused"], *args[:4], *stores, out, n, t, l, b, k // l, radix)
+    _run(host_kernels["turbo_map_fused"], *args[:4], *stores, out, n, t, l, b, k // l, radix)
     _close(out, tm.map_fused_ref(*args, radix=radix))
 
 
@@ -163,3 +206,37 @@ def test_turbo_sweep_and_emit_sources_match_plain(host_kernels, b, k, l, t, radi
     out = gs.new_empty((l // 2, 2, n))
     _run(host_kernels["turbo_emit"], *g2, *stores, out, n, l // 2)
     _close(out, tm.emit_ref(*g2, *stores))
+
+
+def _equal(got, want):
+    np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+
+
+@pytest.mark.parametrize("b,k,l,t", SHAPES)
+def test_turbo_map16_source_matches_plain(host_kernels, b, k, l, t):
+    args = _inputs(b, k, l, t)
+    gs, n = args[0], args[0].shape[1]
+    out = gs.new_empty((l, n))
+    astore = gs.new_empty((l, 8, n), dtype=torch.bfloat16)
+    _run(host_kernels["turbo_map_windowed16"], *args[:4], astore, out, n, t, l, b, k // l)
+    _equal(out, tm.map_windowed16_ref(*args))
+
+
+@pytest.mark.parametrize("b,k,l,t", [SHAPES[0], (2, 512, 128, 32)])
+def test_turbo_fused16_source_matches_plain(host_kernels, b, k, l, t):
+    args = _inputs(b, k, l, t)
+    gs, n = args[0], args[0].shape[1]
+    out = gs.new_empty((l, n))
+    stores = [gs.new_empty((l // 4, 8, n), dtype=torch.bfloat16) for _ in range(2)]
+    _run(host_kernels["turbo_map_fused16"], *args[:4], *stores, out, n, t, l, b, k // l)
+    _equal(out, tm.map_fused16_ref(*args))
+
+
+# odd N (one lane without a partner) in the last shape
+@pytest.mark.parametrize("b,k,l,t", SHAPES[:3] + [(3, 40, 40, 0)])
+def test_turbo_v3_source_matches_plain(host_kernels, b, k, l, t):
+    args = _inputs(b, k, l, t)
+    gs, n = args[0], args[0].shape[1]
+    out, store = gs.new_empty((l, n)), gs.new_empty((l, 8, n))
+    _run(host_kernels["turbo_map_v3"], *args[:4], store, out, n, t, l, b, k // l)
+    _equal(out, tm.map_v3_ref(*args))

@@ -3,10 +3,11 @@ decoder (srsran_4g_tpu_torch.ops.turbo / ops.cuda.turbo_map) against the
 JAX package on the same numpy inputs.
 
 Tolerances: f32 half-iterations and decodes within atol 1e-3 with identical
-hard bits; against the bf16 Pallas v9 kernel (interpret mode) the 16-bit
-bars of tests/test_turbo_pallas.py (atol 2.5, mean |Δ| < 0.5, identical
-hard bits).  tests/test_torch_cuda.py holds the CUDA kernel against its
-plain version on a card.
+hard bits (these run the f32 ``map_windowed`` route, TURBO_KERNEL=v4);
+against the bf16 Pallas v9 kernel (interpret mode) the 16-bit bars of
+tests/test_turbo_pallas.py (atol 2.5, mean |Δ| < 0.5, identical hard
+bits).  tests/test_torch_cuda.py holds the CUDA kernel against its plain
+version on a card.
 """
 
 import numpy as np
@@ -38,9 +39,12 @@ def test_turbo_encode_bit_identical(k):
     np.testing.assert_array_equal(got, want)
 
 
-# L ≡ 0 (mod 4) as v9 runs it, L ≡ 2 (mod 4) as v4 runs it, and odd T
+# L ≡ 0 and ≡ 2 (mod 4), and odd T, through map_windowed (v4; the default,
+# v9, runs bf16 metrics and is held to the JAX v9 kernel in
+# tests/test_torch_turbo16.py)
 @pytest.mark.parametrize("k,l,t", [(512, 64, 32), (424, 106, 32), (512, 64, 31)])
-def test_map_windowed_ref_matches_xla(k, l, t):
+def test_map_windowed_ref_matches_xla(k, l, t, monkeypatch):
+    monkeypatch.setenv("TURBO_KERNEL", "v4")
     args = _gammas(np.random.default_rng(k + t), 3, k)
     want = np.asarray(jturbo._map_windowed(*args, l, t))
     got = turbo._map_windowed(*map(torch.as_tensor, args), l, t).numpy()
@@ -65,7 +69,8 @@ def _noisy_codeword(rng, b, k, snr_db, crc=None):
     return bits, (-2 * y / sigma2).astype(np.float32)
 
 
-def test_turbo_decode_early_stop_matches_xla():
+def test_turbo_decode_early_stop_matches_xla(monkeypatch):
+    monkeypatch.setenv("TURBO_KERNEL", "v4")  # f32, as the XLA decoder
     # 0.5 dB per-bit SNR: some blocks converge after the first half, some
     # need more halves, so the per-block freeze is exercised
     rng = np.random.default_rng(3)

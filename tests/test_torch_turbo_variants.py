@@ -135,7 +135,8 @@ def test_turbo_decode_matches_xla(kernel, monkeypatch):
 
 
 # The JAX rule's outcome, read off the Pallas entry it calls, in the port's
-# route names ("v1" is map_windowed_pallas).
+# route names ("v1" is map_windowed_pallas, whose body is the v3 or bf16 one
+# when TURBO_KERNEL names it).
 _JAX_ENTRIES = {"map_windowed_pallas_v9": "v9", "map_windowed_pallas_r4": "v4",
                 "map_windowed_pallas_v6": "v6", "map_windowed_pallas_v5": "v5",
                 "map_windowed_pallas": "v1"}
@@ -147,7 +148,10 @@ def _jax_route(name, l, t, monkeypatch):
 
     def stub(entry):
         def fn(*args, **kw):
-            called.append("v8" if kw.get("radix4") else entry)
+            if entry == "v1" and name in ("v3", "bf16"):
+                called.append(name)
+            else:
+                called.append("v8" if kw.get("radix4") else entry)
             n = args[0].shape[1]
             if entry == "v5":
                 return (jnp.zeros((l // 2, 8, n)),) * 2
@@ -165,7 +169,7 @@ def _jax_route(name, l, t, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["v1", "v3", "v4", "v5", "v6", "v7", "v8", "v9",
-                                  "nonesuch"])
+                                  "bf16", "nonesuch"])
 def test_kernel_route_matches_jax_rule(name, monkeypatch):
     # L ≡ 0 and ≡ 2 (mod 4), odd L, and T even, odd, 0 and 1
     for l, t in [(64, 16), (64, 2), (106, 32), (64, 31), (64, 1), (64, 0), (63, 16)]:
