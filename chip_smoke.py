@@ -25,7 +25,19 @@ read just after:
   random phase, a CFO and AWGN at 30 dB, searched blind
   (``models/ue_dl.cell_search``: PSS, CFO, alignment, OFDM demod, SSS) and
   decoded from the grid the search returns, each capture checked for its
-  cell id, frame phase, exact timing offset, CFO, CRCs and bits.
+  cell id, frame phase, exact timing offset, CFO, CRCs and bits;
+- the probes: every H100 micro-benchmark of ``srsran_4g_tpu_torch/tools``
+  (the ports of the TPU probes tools/turbo_probe{2,3,6,7}.py) at the TPU
+  probes' shapes, through their ``measure`` entry points, each kernel then
+  held against its plain version;
+- the downlink control path from samples: 128 captures of a 100 PRB
+  subframe 0 (cell 301, CFI 1, Ng 1) carrying a MIB, two PHICH ACKs, a
+  format-1A DCI for a C-RNTI granting the whole band at MCS 28 and one for
+  SI-RNTI, and the granted PDSCH, after the same impairments; the receiver
+  searches the cell, estimates the channel, decodes PCFICH, PBCH, PHICH,
+  blind-searches the PDCCH for both RNTIs and one that was not sent,
+  unpacks the grant and decodes the PDSCH it names, every field checked
+  exactly on every capture.
 
 Output (stdout): the card's name and power limit, the build and check
 lines, per-path subframes/s (best of 3), a per-stage split, then one JSON
@@ -46,11 +58,27 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, f32 outside the
-# tensor cores, and bf16 (the data sheet's one bf16 rate, the tensor cores'),
-# the rates the bounds below are computed against
+# The rates the bounds below are computed against.  Bytes: the H100 SXM's
+# HBM3 bandwidth (NVIDIA data sheet).  Operations: the CUDA cores, at 132 SMs
+# and the 1.98 GHz boost clock.  Per SM and clock, for compute capability
+# 9.0 (CUDA C++ Programming Guide, "Arithmetic Instructions", throughput
+# table): 128 results of 32-bit float add/multiply (one f32 add or subtract
+# an instruction), 256 of 16-bit float add/multiply (128 packed bf16x2
+# instructions; a scalar bf16 add takes one instruction too), and 64 of
+# compare/minimum/maximum (the guide has no packed 16-bit row: a bf16x2 max
+# is taken as one such instruction giving two elements).  Each of the SM's
+# four partitions dispatches one warp instruction a clock (NVIDIA H100
+# Tensor Core GPU Architecture whitepaper), 128 thread instructions per SM
+# and clock of any kind.  So n_add add and n_max max instructions take at
+# least max(n_add / 128, n_max / 64, (n_add + n_max) / 128) SM clocks; in
+# every kernel here n_add >= n_max, so dispatch binds, whatever pipe the
+# maxes use.  The data sheet's 67 TFLOP/s f32 counts an FMA as two
+# operations and its 989 TFLOP/s bf16 is the tensor cores', which no
+# elementwise max can use.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+SM_COUNT, CLOCK_HZ = 132, 1.98e9
+ADD_PER_SM_CLOCK, MAX_PER_SM_CLOCK, DISPATCH_PER_SM_CLOCK = 128, 64, 128
+ELEMENTS_PER_INSTR = {"f32": 1, "bf16": 1, "bf16x2": 2}
 ATOL = 1e-3  # f32 kernel vs plain version: same arithmetic in the same order
 # bf16 kernels vs plain version: the repo's 16-bit bars (hard bits identical,
 # atol 2.5, mean |diff| < 0.5); the same bf16 ops in the same order, so 0 is
@@ -88,6 +116,19 @@ DL_SUBFRAME = 5
 DL_LEAD_MAX, DL_TAIL = 2000, 400
 DL_CFO = 0.1
 DL_CFO_TOL = 0.02
+# the probes: probe 7 also at a lane count that fills the card (132 SMs x
+# 2,048 resident threads, one lane or lane pair a thread)
+P7_FULL_TILE_C = 132 * 2048 // 8
+# the control path: 100 PRB subframe 0 of cell 301, CFI 1, Ng 1, one port; a
+# format-1A DCI for C-RNTI 0x003d at L=2, CCE 8 (candidate (2, 8) of its
+# search space) granting all 100 PRB at MCS 28 (I_TBS 26, TBS 75376), one for
+# SI-RNTI at L=4, CCE 0 (common space); one ACK on each of two PHICH groups,
+# one of them with nseq >= 4; a third RNTI searched but not sent
+CTRL_CELL_ID, CTRL_SUBFRAME = 301, 0
+C_RNTI, SI_RNTI, UNSENT_RNTI = 0x003D, 0xFFFF, 0x1234
+C_DCI_AT, SI_DCI_AT = (2, 8), (4, 0)
+GRANT_MCS, GRANT_TBS = 28, 75376
+PHICH_AT = ((3, 1), (7, 5))  # (group, nseq)
 # kernel route -> (its wrapper and radix, its source under csrc/, the line of
 # the TPU kernel it replaces in srsran_4g_tpu/ops/pallas/turbo_map.py, and the
 # TURBO_KERNEL path whose decode gives its launches)
@@ -122,49 +163,49 @@ def pkg_version(name: str) -> str:
         return "not installed"
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, from CUDA events around `reps` calls."""
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def op_ms(adds: int, maxes: int, kind: str) -> float:
+    """Least time (ms) the CUDA cores take for ``adds`` adds and subtracts
+    and ``maxes`` maxes of type ``kind`` ("f32", "bf16" or "bf16x2",
+    counted in elements): the rates above."""
+    per = ELEMENTS_PER_INSTR[kind]
+    i_add, i_max = adds / per, maxes / per
+    clocks = max(i_add / ADD_PER_SM_CLOCK, i_max / MAX_PER_SM_CLOCK,
+                 (i_add + i_max) / DISPATCH_PER_SM_CLOCK) / SM_COUNT
+    return clocks / CLOCK_HZ * 1e3
 
 
-def bound(nbytes: int, ops: int, kind: str) -> tuple[float, str]:
-    """Least time (ms) for work that moves ``nbytes`` and does ``ops``
-    operations of type ``kind`` ("f32" or "bf16"), and which of the two
-    bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
+def bound(nbytes: int, adds: int, maxes: int, kind: str) -> tuple[float, str]:
+    """Least time (ms) for work that moves ``nbytes`` and does ``adds`` adds
+    and ``maxes`` maxes of type ``kind``, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, op_ms(adds, maxes, kind)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def work(wrapper: str, b: int, k: int, l: int, t: int) -> tuple[int, int]:
-    """Bytes (each input read once, each output written once) and
-    operations of one call of ``wrapper`` at these shapes.  The
-    half-iteration (map_windowed, map_windowed16, map_v3, map_fused,
-    map_fused16) reads the float32 gammas and initial metrics and writes L
-    float32 LLRs per lane; sweep writes the L/2 even-position stores of both
-    chains instead, and emit reads those stores and the body gammas.
-    Operations (bf16 for the 16-bit kernels, else f32): 39 per
-    trellis step per chain (16 branch adds, 8+7 max, 8 normalising
-    subtracts), counting only lanes whose training is not frozen, 40 per
-    LLR, and 48 for emit's two odd-position steps per pair."""
+def work(wrapper: str, b: int, k: int, l: int, t: int) -> tuple[int, int, int]:
+    """Bytes (each input read once, each output written once), adds
+    (subtracts included) and maxes of one call of ``wrapper`` at these
+    shapes.  The half-iteration (map_windowed, map_windowed16, map_v3,
+    map_fused, map_fused16) reads the float32 gammas and initial metrics
+    and writes L float32 LLRs per lane; sweep writes the L/2 even-position
+    stores of both chains instead, and emit reads those stores and the body
+    gammas.  Operations (bf16 for the 16-bit kernels, else f32), counting
+    only lanes whose training is not frozen: per trellis step per chain 24
+    adds (16 branch adds, 8 normalising subtracts) and 15 maxes (8 + 7);
+    per LLR 26 adds (16 alpha + beta, 8 parity terms, the input term and
+    the difference) and 14 maxes; for emit's two odd-position steps per
+    pair 32 adds and 16 maxes."""
     w = k // l
     n = w * b
     gammas, inits, llrs = 2 * (l + 2 * t) * n, 2 * 8 * n, l * n
     stores = 2 * (l // 2) * 8 * n
     steps = (n - b) * t + (w - 1) * b * t + 2 * n * (l - 1)
     if wrapper == "sweep":
-        return 4 * (gammas + inits + stores), 39 * steps
+        return 4 * (gammas + inits + stores), 24 * steps, 15 * steps
     if wrapper == "emit":
-        return 4 * (2 * l * n + stores + llrs), (40 * 2 + 48) * (l // 2) * n
-    return 4 * (gammas + inits + llrs), 39 * steps + 40 * llrs
+        pairs = (l // 2) * n
+        return (4 * (2 * l * n + stores + llrs), (26 * 2 + 32) * pairs,
+                (14 * 2 + 16) * pairs)
+    return 4 * (gammas + inits + llrs), 24 * steps + 26 * llrs, 15 * steps + 14 * llrs
 
 
 def gamma_inputs(dev, gen, b, k, l, t):
@@ -199,6 +240,7 @@ def check_kernel(route: str, args, time_it=False) -> dict:
     kernels to atol 1e-3, bf16 kernels to the 16-bit bars; map_v3 also
     against turbo_map's LLRs."""
     from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+    from srsran_4g_tpu_torch.tools import event_ms, host_ms
 
     gs, _, _, _, t, l, b, w = args
     kernel, plain = kernel_calls(args, route)
@@ -224,8 +266,8 @@ def check_kernel(route: str, args, time_it=False) -> dict:
             raise AssertionError(f"map_v3 vs turbo_map at {desc}: max |diff| "
                                  f"{res['vs_turbo_map']} > {ATOL}")
     if time_it:
-        res["ms"] = cuda_ms(kernel, reps=20)
-        res["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+        res["ms"] = event_ms(kernel, iters=20, warmup=2)
+        res["plain_ms"] = host_ms(plain, iters=2)
     log(f"check {route} {desc}: max|diff| {err:.3g}"
         + (f" (vs turbo_map {res['vs_turbo_map']:.3g})" if "vs_turbo_map" in res else "")
         + (f", kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms" if time_it else ""))
@@ -253,17 +295,18 @@ def check_kernels(dev, gen, b, k) -> dict:
     return out
 
 
-def launch_counts() -> dict[str, int]:
+def launch_counts(names=WRAPPERS) -> dict[str, int]:
+    """The port's launch counts (``turbo_map.launches``) of these kernels."""
     from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 
-    return {name: getattr(tm, name).launches for name in WRAPPERS}
+    return {name: tm.launches[name] for name in names}
 
 
 def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
     from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 
-    for name in WRAPPERS:
-        getattr(tm, name).launches = 0
+    tm.launches.clear()
 
 
 def timed_decodes(cfg, rx, reps: int, decode=None):
@@ -440,31 +483,39 @@ def mimo_lane(dev, gen, card: str) -> dict[str, int]:
     return counts
 
 
-def dl_captures(dev, gen, cfg, cfo_max: float):
-    """DL-from-samples traffic: BATCH captures of one subframe of ``cfg``,
-    each after a random lead and with a random phase, a CFO uniform in
-    +-cfo_max subcarriers and AWGN at SNR_DB.  Returns (captures (B, n)
-    complex64, sent bits, lead (B,), cfo (B,))."""
+def impair(dev, gen, sf: torch.Tensor, cfo_max: float, symbol_sz: int):
+    """Captures of the subframes ``sf`` (B, sf_len), each after a random lead
+    of 0..DL_LEAD_MAX samples and before a tail of at least DL_TAIL, with a
+    random phase, a CFO uniform in +-cfo_max subcarriers and AWGN at SNR_DB.
+    Returns (captures (B, n) complex64, lead (B,), cfo (B,))."""
     from srsran_4g_tpu_torch.channel import awgn
+
+    b, sf_len = sf.shape
+    n = DL_LEAD_MAX + sf_len + DL_TAIL
+    lead = torch.randint(0, DL_LEAD_MAX + 1, (b,), generator=gen, device=dev)
+    gain = torch.polar(torch.ones(b, device=dev),
+                       2 * np.pi * torch.rand(b, generator=gen, device=dev))
+    cap = torch.zeros((b, n), dtype=torch.complex64, device=dev)
+    cap.scatter_(1, lead[:, None] + torch.arange(sf_len, device=dev), sf * gain[:, None])
+    cfo = (2 * torch.rand(b, generator=gen, device=dev) - 1) * cfo_max
+    phase = 2 * np.pi * cfo.double()[:, None] * torch.arange(n, device=dev) / symbol_sz
+    cap = cap * torch.polar(torch.ones_like(phase), phase).to(torch.complex64)
+    return (awgn.awgn(cap, awgn.snr_to_noise_var(SNR_DB, device=dev), generator=gen),
+            lead, cfo)
+
+
+def dl_captures(dev, gen, cfg, cfo_max: float):
+    """DL-from-samples traffic: BATCH captures of one subframe of ``cfg``
+    (``impair``).  Returns (captures (B, n) complex64, sent bits, lead (B,),
+    cfo (B,))."""
     from srsran_4g_tpu_torch.models import enb_dl
     from srsran_4g_tpu_torch.ops.ofdm import OfdmConfig
 
-    ocfg = OfdmConfig(nof_prb=cfg.cell.nof_prb)
     bits = torch.randint(0, 2, (BATCH, cfg.tbs), generator=gen, device=dev,
                          dtype=torch.int8)
     sf = enb_dl.subframe_to_samples(cfg.cell, enb_dl.assemble_subframe(cfg, bits))
-    n = DL_LEAD_MAX + ocfg.sf_len + DL_TAIL
-    lead = torch.randint(0, DL_LEAD_MAX + 1, (BATCH,), generator=gen, device=dev)
-    gain = torch.polar(torch.ones(BATCH, device=dev),
-                       2 * np.pi * torch.rand(BATCH, generator=gen, device=dev))
-    cap = torch.zeros((BATCH, n), dtype=torch.complex64, device=dev)
-    cap.scatter_(1, lead[:, None] + torch.arange(ocfg.sf_len, device=dev),
-                 sf * gain[:, None])
-    cfo = (2 * torch.rand(BATCH, generator=gen, device=dev) - 1) * cfo_max
-    phase = 2 * np.pi * cfo.double()[:, None] * torch.arange(n, device=dev) / ocfg.symbol_sz
-    cap = cap * torch.polar(torch.ones_like(phase), phase).to(torch.complex64)
-    return (awgn.awgn(cap, awgn.snr_to_noise_var(SNR_DB, device=dev), generator=gen), bits,
-            lead, cfo)
+    cap, lead, cfo = impair(dev, gen, sf, cfo_max, OfdmConfig(nof_prb=cfg.cell.nof_prb).symbol_sz)
+    return cap, bits, lead, cfo
 
 
 def profile_search(search, card: str, reps: int = 3) -> None:
@@ -566,6 +617,334 @@ def dl_path(dev, gen, card: str) -> dict[str, int]:
     return counts
 
 
+def probes_phase(card: str) -> list[dict]:
+    """The probes' path: every H100 micro-benchmark at its TPU probe's
+    shapes through the tools' ``measure`` entry points (each kernel's ms from
+    CUDA events), the launch counts of that run, then each kernel against
+    its plain version on the same inputs (f32 atol 1e-3, bf16 the 16-bit
+    bars).  Returns the probes' entries of the kernels line."""
+    from srsran_4g_tpu_torch.ops.cuda import probes
+    from srsran_4g_tpu_torch.tools import host_ms
+    from srsran_4g_tpu_torch.tools import turbo_probe2 as p2
+    from srsran_4g_tpu_torch.tools import turbo_probe3 as p3
+    from srsran_4g_tpu_torch.tools import turbo_probe6 as p6
+    from srsran_4g_tpu_torch.tools import turbo_probe7 as p7
+
+    reset_counts()
+    log(f"[{card}] probe 2 (N={p2.N} lanes, {p2.N_STEPS} radix-4 steps):")
+    r2 = p2.measure(probes.PROBE2_VARIANTS)
+    log(f"[{card}] probe 3 (N={p3.N} lanes):")
+    r3 = p3.measure()
+    log(f"[{card}] probe 6 (N={p6.N} lanes, {p6.STEPS} radix-4 steps):")
+    r6 = p6.measure()
+    log(f"[{card}] probe 7 at the TPU probe's default, then filling the card:")
+    r7 = p7.measure()
+    r7_full = p7.measure(tile_c=P7_FULL_TILE_C)
+    torch.cuda.synchronize()
+    counts = launch_counts(probes.KERNELS)
+    if not all(counts.values()):
+        raise AssertionError(f"the probes' run launched no kernel for "
+                             f"{[k for k, n in counts.items() if not n]}")
+    log(f"probe launches: {counts}")
+
+    # ---- each kernel against its plain version (launches not counted) ----
+    def check(name, kernel, plain, bf16=False):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        if name.startswith("probe2_") or name == "probe3_empty":
+            pairs = [(g[0], w[0]) for g, w in pairs]  # row 0 is the output
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+        if not np.isfinite(err):
+            raise AssertionError(f"{name} kernel vs plain: not finite")
+        # the outputs must be far from 0 for the tolerance to mean anything
+        size = min(float(w.float().abs().mean()) for _, w in pairs)
+        if size < 100 * ATOL:
+            raise AssertionError(f"{name}: plain output's mean |value| {size} is within "
+                                 f"100x of the tolerance {ATOL}")
+        if bf16:
+            # the 16-bit bars, and, since kernel and plain version round the
+            # same bf16 ops in the same order, equality
+            mean = max(float((g.float() - w.float()).abs().mean()) for g, w in pairs)
+            if err > ATOL16 or mean >= MEAN16 or not all(
+                    torch.equal(g > 0, w > 0) for g, w in pairs):
+                raise AssertionError(f"{name} kernel vs plain: max |diff| {err}, "
+                                     f"mean {mean}, or a sign differs")
+            if err:
+                raise AssertionError(f"{name} kernel vs plain: max |diff| {err}, not equal")
+        elif err > ATOL:
+            raise AssertionError(f"{name} kernel vs plain: max |diff| {err} > {ATOL}")
+        log(f"check {name}: max |diff| {err:.3g}, plain mean |value| {size:.4g}")
+        plain_ms = host_ms(plain)
+        return err, plain_ms
+
+    res = {}
+    g, a0 = p2.inputs()
+    for v in probes.PROBE2_VARIANTS:
+        res[f"probe2_{v}"] = dict(ms=r2[v], n=p2.N, n_steps=p2.N_STEPS, checks=check(
+            f"probe2_{v}", lambda: getattr(p2, v)(g, a0),
+            lambda: probes.probe2_ref(v, g, g, a0, p2.N_STEPS, p2.WIN, p2.WIN // 2)))
+    ins = p3.inputs()
+    err3 = max(check("probe3_empty", lambda: p3.empty(ins, threads=t, scratch=sc),
+                     lambda: probes.probe_empty_ref(ins, 112))[0]
+               for t in p3.THREADS for sc in (False, True))
+    res["probe3_empty"] = dict(ms=r3["empty threads=1024"], n=p3.N,
+                               checks=(err3, host_ms(lambda: probes.probe_empty_ref(ins, 112))))
+    x = p6.inputs()
+    # random start metrics: from p6.inputs' zeros the skeleton's output is 0
+    rng = np.random.default_rng(SEED)
+
+    def metrics(rows, n, dtype):
+        x = rng.normal(0, 1, (rows, n)).astype(np.float32)
+        return torch.as_tensor(x, device="cuda").to(dtype)
+
+    a6, b6 = metrics(8, p6.N, torch.float32), metrics(8, p6.N, torch.float32)
+    a16, b16 = (metrics(16, p6.N // 2, torch.bfloat16), metrics(16, p6.N // 2, torch.bfloat16))
+    res["probe6_full"] = dict(ms=r6["full"], n=p6.N, n_steps=p6.STEPS, checks=check(
+        "probe6_full", lambda: p6.full(x["g2s"], x["g2p"], a6, b6),
+        lambda: probes.probe6_full_ref(x["g2s"], x["g2p"], a6, b6)))
+    res["probe6_skel"] = dict(ms=r6["skel"], n=p6.N, n_steps=p6.STEPS, checks=check(
+        "probe6_skel", lambda: p6.skel(a6, b6),
+        lambda: probes.probe6_skel_ref(a6, b6, p6.STEPS)))
+    res["probe6_bf16"] = dict(ms=r6["bf16"], n=p6.N, n_steps=p6.STEPS, checks=check(
+        "probe6_bf16", lambda: p6.bf16(x["g2s16"], x["g2p16"], a16, b16),
+        lambda: probes.probe6_bf16_ref(x["g2s16"], x["g2p16"], a16, b16), bf16=True))
+    for dt, rows, key in ((torch.float32, 8, "f32"), (torch.bfloat16, 16, "bf16")):
+        errs = []
+        for tc in (p7.TC, P7_FULL_TILE_C):
+            g7, a7 = p7.check_inputs(dt, rows, tc)  # lanes differ, unlike p7.inputs
+            errs.append(check(f"probe7_{key}", lambda: probes.probe7(g7, a7, p7.ITERS),
+                              lambda: probes.probe7_ref(g7, a7, p7.ITERS), bf16=key == "bf16"))
+        res[f"probe7_{key}"] = dict(
+            ms=r7_full[f"{key}_ms"], n=rows * P7_FULL_TILE_C, iters=p7.ITERS,
+            checks=(max(e for e, _ in errs), errs[-1][1]),
+            gelem_s=r7_full[f"{key}_gelem_s"], ms_tpu_default=r7[f"{key}_ms"],
+            gelem_s_tpu_default=r7[f"{key}_gelem_s"])
+    log(f"[{card}] probe 7 bf16/f32 element-rate ratio: {r7['ratio']:.3f} at "
+        f"{8 * p7.TC} f32 lanes, {r7_full['ratio']:.3f} at {8 * P7_FULL_TILE_C}")
+    log(f"[{card}] probe 3: host {r3['host_ms_per_launch'] * 1e3:.2f} us per ctypes "
+        f"launch against {r3['device_ms_per_launch'] * 1e3:.2f} us of device time")
+
+    kernels = []
+    for name in probes.KERNELS:
+        r = res[name]
+        nbytes, adds, maxes, kind = probes.work(name, r["n"], n_steps=r.get("n_steps", 0),
+                                                iters=r.get("iters", 0))
+        bound_ms, bound_by = bound(nbytes, adds, maxes, kind)
+        err, plain_ms = r["checks"]
+        log(f"[{card}] {name}: {r['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes} B; {adds} adds + {maxes} maxes {kind}, {op_ms(adds, maxes, kind):.4f} "
+            f"ms), {bound_ms / r['ms']:.3f} of the bound; plain "
+            f"{plain_ms:.2f} ms, max |diff| {err:.3g}")
+        source = "probe_launch.cu" if name == "probe3_empty" else "probe_acs.cu"
+        extra = {k: r[k] for k in ("gelem_s", "ms_tpu_default", "gelem_s_tpu_default")
+                 if k in r}
+        if name == "probe3_empty":
+            extra = dict(host_ms_per_launch=r3["host_ms_per_launch"],
+                         configs={k: v for k, v in r3.items() if k.startswith("empty")})
+        kernels.append(dict(
+            name=name, route="cuda", source=f"srsran_4g_tpu_torch/csrc/{source}",
+            replaces=probes.REPLACES[name], path="probes", shapes=dict(
+                lanes=r["n"], **{k: r[k] for k in ("n_steps", "iters") if k in r}),
+            launches=counts[name], max_abs_err=err, ms=r["ms"], plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, library_ms=None, **extra))
+    return kernels
+
+
+def ctrl_traffic(dev, gen):
+    """The control path's transmitter: BATCH subframe-0 grids of 100 PRB with
+    a MIB, the two DCIs, the granted PDSCH and the two PHICH ACKs, made into
+    samples.  Returns (samples (B, sf_len), the PDSCH config, what was sent)."""
+    from srsran_4g_tpu_torch.models import dci, enb_dl, grid, pdsch, phich
+
+    cell = grid.CellConfig(nof_prb=100, cell_id=CTRL_CELL_ID, cfi=1)
+    cfg = pdsch.PdschConfig(cell=cell, rnti=C_RNTI, subframe=CTRL_SUBFRAME, mod="64qam",
+                            tbs=GRANT_TBS)
+    rng = np.random.default_rng(SEED)
+    sent = dict(mib=rng.integers(0, 2, (BATCH, 24)).astype(np.int8),
+                si=rng.integers(0, 2, (BATCH, dci.format1a_len(100))).astype(np.int8),
+                acks=[rng.integers(0, 2, BATCH).astype(np.int8) for _ in PHICH_AT])
+    sent["c"] = np.stack([dci.pack_1a(dci.Dci1A(
+        rb_start=0, l_crbs=100, mcs=GRANT_MCS, harq_pid=int(rng.integers(8)),
+        ndi=int(rng.integers(2)), rv=0, tpc=int(rng.integers(4))), 100) for _ in range(BATCH)])
+    sent["tb"] = torch.randint(0, 2, (BATCH, GRANT_TBS), generator=gen, device=dev,
+                               dtype=torch.int8)
+    g = enb_dl.assemble_subframe(cfg, sent["tb"], mib_bits=sent["mib"], frame_idx=0,
+                                 dcis=[(sent["c"], C_RNTI, *C_DCI_AT),
+                                       (sent["si"], SI_RNTI, *SI_DCI_AT)])
+    for (group, nseq), ack in zip(PHICH_AT, sent["acks"]):
+        g = phich.put_into_grid(cell, g, phich.encode(
+            cell, torch.as_tensor(ack, device=dev), group, nseq, CTRL_SUBFRAME), group)
+    return enb_dl.subframe_to_samples(cell, g), cfg, sent
+
+
+def profile_window(fn, card: str, what: str, host_s: float, reps: int = 3) -> None:
+    """Device time, kernel count and idle share of fn() from torch.profiler
+    over ``reps`` calls, against the unprofiled host time ``host_s``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    if busy_ms <= 0:
+        log(f"[{card}] profiler saw no device time: {what} idle share not measured")
+        return
+    n_kernels = sum(e.count for e in kernels) / reps
+    log(f"[{card}] {what}: device time {busy_ms:.3f} ms in {n_kernels:.0f} kernels; idle "
+        f"share {1 - busy_ms / (host_s * 1e3):.3f} of the unprofiled {host_s * 1e3:.2f} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<5d} "
+            f"{e.key[:90]}")
+
+
+def control_path(dev, gen, card: str) -> dict[str, int]:
+    """The DL control path from samples at 100 PRB under the default
+    TURBO_KERNEL, every field checked on every capture: cell search, channel
+    estimate, PCFICH, PBCH, PHICH, PDCCH blind search for both RNTIs and an
+    unsent one, the 1A grant through ``ra``, then the PDSCH it grants.
+    Returns the launch counts of the checked run."""
+    from srsran_4g_tpu_torch.models import (chest, dci, pbch, pcfich, pdcch, pdsch, phich, ra,
+                                            ue_dl)
+    from srsran_4g_tpu_torch.ops.ofdm import OfdmConfig, _symbol_offsets
+
+    os.environ.pop("TURBO_KERNEL", None)
+    t0 = time.perf_counter()
+    sf, cfg, sent = ctrl_traffic(dev, gen)
+    cap, lead, cfo = impair(dev, gen, sf, DL_CFO, OfdmConfig(nof_prb=100).symbol_sz)
+    torch.cuda.synchronize()
+    cell, n_bits = cfg.cell, dci.format1a_len(100)
+    cands = {r: pdcch.search_space_candidates(cell, 1, r, CTRL_SUBFRAME)
+             for r in (C_RNTI, SI_RNTI)}
+    log(f"control path: {BATCH} captures of 100 PRB subframe {CTRL_SUBFRAME}, cell "
+        f"{CTRL_CELL_ID}, CFI 1, {pdcch.cce_re_indices(cell, 1).shape[0]} CCEs, "
+        f"format 1A {n_bits} bits; C-RNTI {C_RNTI:#06x} at {C_DCI_AT} (candidate "
+        f"{cands[C_RNTI].index(C_DCI_AT)} of {len(cands[C_RNTI])}), SI-RNTI at {SI_DCI_AT} "
+        f"(candidate {cands[SI_RNTI].index(SI_DCI_AT)} of {len(cands[SI_RNTI])}); PHICH "
+        f"{PHICH_AT}; made in {time.perf_counter() - t0:.2f} s (first call)")
+
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages.setdefault(name, []).append(time.perf_counter() - t)
+        return out
+
+    def receive():
+        found = stage("cell_search", lambda: ue_dl.cell_search(cap, 100))
+        grid_rx = found["grid"]
+        est = stage("chest", lambda: chest.estimate(chest.ChestConfig(cell=cell), grid_rx,
+                                                    CTRL_SUBFRAME))
+        h, nv = est["h"], est["noise_var"]
+        out = dict(found=found)
+        out["cfi"] = stage("pcfich", lambda: pcfich.decode(cell, grid_rx, h, nv,
+                                                           CTRL_SUBFRAME)["cfi"])
+        out["mib"] = stage("pbch", lambda: pbch.decode(cell, grid_rx, h, nv, frame_idx=0))
+        out["phich"] = stage("phich", lambda: [phich.decode(
+            cell, grid_rx, h, nv, group, nseq, CTRL_SUBFRAME) for group, nseq in PHICH_AT])
+        out["pdcch"] = stage("pdcch", lambda: {r: pdcch.blind_decode(
+            cell, 1, CTRL_SUBFRAME, grid_rx, h, nv, rnti=r, dci_len=n_bits)
+            for r in (C_RNTI, SI_RNTI, UNSENT_RNTI)})
+
+        def grant():
+            grants = [dci.unpack_1a(p, 100) for p in out["pdcch"][C_RNTI]["dci"].cpu().numpy()]
+            g = grants[0]
+            return grants, pdsch.PdschConfig(
+                cell=cell, rnti=C_RNTI, subframe=CTRL_SUBFRAME, mod=ra.dl_mcs_to_mod(g.mcs),
+                tbs=ra.dl_tbs(g.mcs, g.l_crbs), rv=g.rv,
+                prb_alloc=tuple(range(g.rb_start, g.rb_start + g.l_crbs)))
+        out["grants"], out["cfg"] = stage("dci_ra", grant)
+        out["pdsch"] = stage("pdsch", lambda: pdsch.decode(out["cfg"], grid_rx, h=h,
+                                                           noise_var=nv, n_iter=N_ITER))
+        return out
+
+    reset_counts()
+    out = receive()
+    counts = launch_counts()
+    found = out["found"]
+    off_err = found["offset"] - (lead + int(_symbol_offsets(OfdmConfig(nof_prb=100))[6]))
+    cfo_err = float((found["cfo"] - cfo).abs().max())
+    pd = out["pdcch"]
+    c_idx, si_idx = cands[C_RNTI].index(C_DCI_AT), cands[SI_RNTI].index(SI_DCI_AT)
+    grant = out["grants"][0]
+    checks = {
+        "cell_id": bool((found["cell_id"] == CTRL_CELL_ID).all()),
+        "phase 0": bool((found["phase"] == 0).all()),
+        "offset exact": bool((off_err == 0).all()),
+        f"|CFO error| < {DL_CFO_TOL}": cfo_err < DL_CFO_TOL,
+        "CFI 1": bool((out["cfi"] == 1).all()),
+        "MIB crc_ok": bool(out["mib"]["crc_ok"].all()),
+        "MIB n_ports 1": bool((out["mib"]["n_ports"] == 1).all()),
+        "MIB bits": np.array_equal(out["mib"]["mib"].cpu().numpy(), sent["mib"]),
+        "PHICH ACKs": all(np.array_equal(r["ack"].cpu().numpy(), a)
+                          for r, a in zip(out["phich"], sent["acks"])),
+        "C-RNTI DCI found": bool(pd[C_RNTI]["found"].all()),
+        "C-RNTI DCI at its candidate": bool(pd[C_RNTI]["ok_per_candidate"][:, c_idx].all()),
+        "C-RNTI DCI bits": np.array_equal(pd[C_RNTI]["dci"].cpu().numpy(), sent["c"]),
+        "SI-RNTI DCI found": bool(pd[SI_RNTI]["found"].all()),
+        "SI-RNTI DCI at its candidate": bool(pd[SI_RNTI]["ok_per_candidate"][:, si_idx].all()),
+        "SI-RNTI DCI bits": np.array_equal(pd[SI_RNTI]["dci"].cpu().numpy(), sent["si"]),
+        "unsent RNTI not found": not bool(pd[UNSENT_RNTI]["found"].any()),
+        "grant 100 PRB / 64QAM / TBS 75376": (
+            len({(g.rb_start, g.l_crbs, g.mcs, g.rv) for g in out["grants"]}) == 1
+            and (grant.rb_start, grant.l_crbs) == (0, 100)
+            and out["cfg"].mod == "64qam" and out["cfg"].tbs == GRANT_TBS),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"control path: {checks}; offset errors "
+                             f"{off_err.unique().tolist()}, max |CFO error| {cfo_err}")
+    check_exact(out["pdsch"]["crc_ok"], out["pdsch"]["bits"], sent["tb"],
+                "control path: the granted PDSCH")
+    moved = {name for name, n in counts.items() if n}
+    if moved != set(PATH_KERNELS["v9"]):
+        raise AssertionError(f"the control path launched {counts}, expected only "
+                             f"{PATH_KERNELS['v9']}")
+    reported = {r: sorted(set(pd[r]["candidate"].tolist())) for r in (C_RNTI, SI_RNTI)}
+    echoes = {r: int(pd[r]["ok_per_candidate"].sum(dim=1).max()) for r in (C_RNTI, SI_RNTI)}
+    log(f"control path: every check exact on {BATCH}/{BATCH} ({', '.join(checks)}, PDSCH "
+        f"crc_ok and bits); first-match candidates {reported} (sent at {c_idx} and "
+        f"{si_idx}), at most {echoes} candidates pass per capture; launches {counts}")
+
+    stages.clear()
+    t_all = []
+    for _ in range(PATH_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = receive()
+        torch.cuda.synchronize()
+        t_all.append(time.perf_counter() - t0)
+        check_exact(res["pdsch"]["crc_ok"], res["pdsch"]["bits"], sent["tb"],
+                    "control path (timed)")
+    log(f"[{card}] control path stages, host clock, best of {PATH_REPS} (ms): " + ", ".join(
+        f"{k} {min(v) * 1e3:.2f}" for k, v in stages.items()))
+    log(f"[{card}] control path, search to PDSCH bits, {BATCH} captures: best of "
+        f"{PATH_REPS} {min(t_all) * 1e3:.2f} ms "
+        f"({', '.join(f'{x * 1e3:.2f}' for x in t_all)}) = {BATCH / min(t_all):.1f} "
+        f"decoded subframes/s")
+    grid_rx = res["found"]["grid"]
+    est = chest.estimate(chest.ChestConfig(cell=cell), grid_rx, CTRL_SUBFRAME)
+    h, nv = est["h"], est["noise_var"]
+
+    def control_stages():
+        pcfich.decode(cell, grid_rx, h, nv, CTRL_SUBFRAME)
+        pbch.decode(cell, grid_rx, h, nv, frame_idx=0)
+        for group, nseq in PHICH_AT:
+            phich.decode(cell, grid_rx, h, nv, group, nseq, CTRL_SUBFRAME)
+        for r in (C_RNTI, SI_RNTI, UNSENT_RNTI):
+            pdcch.blind_decode(cell, 1, CTRL_SUBFRAME, grid_rx, h, nv, rnti=r, dci_len=n_bits)
+
+    ctrl_s = sum(min(stages[k]) for k in ("pcfich", "pbch", "phich", "pdcch"))
+    profile_window(control_stages, card, "control stages (PCFICH, PBCH, PHICH, 3 blind "
+                   "searches)", ctrl_s)
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -580,6 +959,9 @@ def main() -> None:
     dev = torch.device("cuda")
     card = smi("name,power.limit")
     log(card)
+    log(f"SM clock max {smi('clocks.max.sm')}, {torch.cuda.get_device_properties(0).multi_processor_count} "
+        f"SMs; op rates assume {SM_COUNT} SMs at {CLOCK_HZ / 1e9} GHz, per SM and clock "
+        f"{ADD_PER_SM_CLOCK} adds, {MAX_PER_SM_CLOCK} maxes, {DISPATCH_PER_SM_CLOCK} dispatched")
     log(" ".join(subprocess.run(["nvidia-smi", "--version"], check=True,
                                 capture_output=True, text=True).stdout.split()))
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton "
@@ -650,14 +1032,17 @@ def main() -> None:
     time_paths(cfg, rx, bits, card)
     mimo_lane(dev, gen, card)
     dl_path(dev, gen, card)
+    probe_kernels = probes_phase(card)
+    control_path(dev, gen, card)
 
     b, k, l, t = BATCH * grp.count, grp.K, 208, 32
     kernels = []
     for route, (wrapper, _, source, line, path) in ROUTES.items():
-        nbytes, ops = work(wrapper, b, k, l, t)
+        nbytes, adds, maxes = work(wrapper, b, k, l, t)
         kind = "bf16" if wrapper in BF16_WRAPPERS else "f32"
-        bound_ms, bound_by = bound(nbytes, ops, kind)
-        log(f"{route} bound at B={b} K={k} L={l} T={t}: {nbytes} bytes, {ops} {kind} ops "
+        bound_ms, bound_by = bound(nbytes, adds, maxes, kind)
+        log(f"{route} bound at B={b} K={k} L={l} T={t}: {nbytes} bytes, {adds} adds + "
+            f"{maxes} maxes ({kind}; {op_ms(adds, maxes, kind):.4f} ms) "
             f"-> {bound_ms:.4f} ms ({bound_by}); kernel {kern[route]['ms']:.4f} ms")
         kernels.append(dict(
             name=route, route="cuda", source=f"srsran_4g_tpu_torch/csrc/{source}",
@@ -669,7 +1054,7 @@ def main() -> None:
             bound_by=bound_by, bytes=nbytes, library_ms=None,
             **({"vs_turbo_map_max_abs_err": kern[route]["vs_turbo_map"]}
                if "vs_turbo_map" in kern[route] else {})))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + probe_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

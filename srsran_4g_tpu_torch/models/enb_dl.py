@@ -3,9 +3,7 @@
 Port counterpart of ``srsran_4g_tpu/models/enb_dl.py`` (the reference's
 `lib/src/phy/enb/enb_dl.c`: srsran_enb_dl_put_* of PSS/SSS, CRS, PBCH,
 PCFICH, PDCCH and PDSCH into the RE grid, then the IFFT).  Everything is
-batched over subframes.  PBCH (``mib_bits``) and PDCCH (``dcis``) come with
-the port's control-channel slice (``models/pbch.py``, ``models/pdcch.py``);
-until then asking for them raises ``NotImplementedError``.
+batched over subframes.
 """
 
 from __future__ import annotations
@@ -14,7 +12,9 @@ import numpy as np
 import torch
 
 from srsran_4g_tpu_torch.models import grid as G
+from srsran_4g_tpu_torch.models import pbch as pbch_mod
 from srsran_4g_tpu_torch.models import pcfich as pcfich_mod
+from srsran_4g_tpu_torch.models import pdcch as pdcch_mod
 from srsran_4g_tpu_torch.models import pdsch as pdsch_mod
 from srsran_4g_tpu_torch.models import sync
 from srsran_4g_tpu_torch.ops.ofdm import OfdmConfig, modulate
@@ -78,21 +78,15 @@ def assemble_subframe(
     dcis: list[tuple] | None = None,
     device: torch.device | str | None = None,
 ) -> torch.Tensor:
-    """Full DL subframe grid: PDSCH + CRS + sync + PCFICH.
+    """Full DL subframe grid: PDSCH + CRS + sync + PCFICH (+ PBCH, + DCIs).
 
-    A tensor ``tb_bits`` stays on its device; other inputs go to ``device``
-    (default CUDA).  ``mib_bits`` (PBCH, used in subframe 0) and ``dcis``
-    (PDCCH) raise until the port's PBCH/PDCCH slice lands.
+    ``mib_bits`` (B, 24): the PBCH of the 40 ms TTI's block ``frame_idx % 4``
+    goes into subframe 0 (other subframes carry none).  ``dcis``: a list of
+    (dci_bits (B, A), rnti, l_agg, cce_start), put on the PDCCH of
+    ``cell.cfi``'s control region.  A tensor ``tb_bits`` stays on its
+    device; other inputs go to the grid's device, ``device`` (default CUDA)
+    when ``tb_bits`` is not a tensor.
     """
-    if mib_bits is not None and pdsch_cfg.subframe == 0:
-        raise NotImplementedError(
-            "PBCH (mib_bits) needs models/pbch.py, which comes with the port's "
-            "control-channel slice (ROADMAP Queue 1, Slice C)")
-    if dcis:
-        raise NotImplementedError(
-            "PDCCH (dcis) needs models/pdcch.py, which comes with the port's "
-            "control-channel slice (ROADMAP Queue 1, Slice C)")
-    del frame_idx  # selects the PBCH block, used with mib_bits
     cell = pdsch_cfg.cell
     sf = pdsch_cfg.subframe
     g = pdsch_mod.encode(pdsch_cfg, tb_bits, device=device)
@@ -100,7 +94,14 @@ def assemble_subframe(
     g = put_sync_signals(cell, g, sf)
     cfi = cfi_value if cfi_value is not None else cell.cfi
     cfi_arr = torch.full((g.shape[0],), cfi, dtype=torch.int32, device=g.device)
-    return pcfich_mod.put_into_grid(cell, g, pcfich_mod.encode(cell, cfi_arr, sf))
+    g = pcfich_mod.put_into_grid(cell, g, pcfich_mod.encode(cell, cfi_arr, sf))
+    if mib_bits is not None and sf == 0:
+        syms = pbch_mod.encode(cell, torch.as_tensor(mib_bits, device=g.device))
+        g = pbch_mod.put_into_grid(cell, g, syms[:, frame_idx % 4])
+    for dci_bits, rnti, l_agg, cce_start in dcis or []:
+        g = pdcch_mod.put_dci(cell, cell.cfi, sf, g, torch.as_tensor(dci_bits, device=g.device),
+                              rnti, l_agg, cce_start)
+    return g
 
 
 def subframe_to_samples(cell: G.CellConfig, grid_tx: torch.Tensor) -> torch.Tensor:

@@ -33,11 +33,14 @@ kernels and the Pallas calls agree exactly.
 
 Every wrapper launches its kernel on a CUDA tensor and runs its plain version
 (``*_ref``) only on a CPU tensor; there is no fallback from one to the other.
-``<wrapper>.launches`` counts kernel launches.
+``launches[<wrapper>]`` counts kernel launches: ``_launch`` adds one for
+each launch of every wrapper of the port (``probes.py``'s too), and nothing
+else does.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -125,13 +128,9 @@ def map_windowed(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     n = gs_ext.shape[1]
     out = gs_ext.new_empty((l_win, n))
     astore = gs_ext.new_empty((l_win, 8, n))
-    _launch("turbo_map", "turbo_map_windowed", 6, 5, gs_ext, gp_ext, a_init,
-            b_init, astore, out, n, t_train, l_win, nof_b, nof_w)
-    map_windowed.launches += 1
+    _launch("map_windowed", "turbo_map", "turbo_map_windowed", 6, 5, gs_ext, gp_ext,
+            a_init, b_init, astore, out, n, t_train, l_win, nof_b, nof_w)
     return out
-
-
-map_windowed.launches = 0
 
 
 def map_windowed16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
@@ -147,13 +146,9 @@ def map_windowed16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     n = gs_ext.shape[1]
     out = gs_ext.new_empty((l_win, n))
     astore = gs_ext.new_empty((l_win, 8, n), dtype=torch.bfloat16)
-    _launch("turbo_map", "turbo_map_windowed16", 6, 5, gs_ext, gp_ext, a_init,
-            b_init, astore, out, n, t_train, l_win, nof_b, nof_w)
-    map_windowed16.launches += 1
+    _launch("map_windowed16", "turbo_map", "turbo_map_windowed16", 6, 5, gs_ext, gp_ext,
+            a_init, b_init, astore, out, n, t_train, l_win, nof_b, nof_w)
     return out
-
-
-map_windowed16.launches = 0
 
 
 def map_v3(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
@@ -169,13 +164,9 @@ def map_v3(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
     n = gs_ext.shape[1]
     out = gs_ext.new_empty((l_win, n))
     store = gs_ext.new_empty((l_win, 8, n))
-    _launch("turbo_v3", "turbo_map_v3", 6, 5, gs_ext, gp_ext, a_init, b_init,
+    _launch("map_v3", "turbo_v3", "turbo_map_v3", 6, 5, gs_ext, gp_ext, a_init, b_init,
             store, out, n, t_train, l_win, nof_b, nof_w)
-    map_v3.launches += 1
     return out
-
-
-map_v3.launches = 0
 
 
 # --- plain steps of the paired dataflows (trellis.cuh) ----------------------
@@ -333,13 +324,9 @@ def map_fused(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
     out = gs_ext.new_empty((l_win, n))
     astore = gs_ext.new_empty((l_win // 4, 8, n))
     bstore = gs_ext.new_empty((l_win // 4, 8, n))
-    _launch("turbo_fused", "turbo_map_fused", 7, 6, gs_ext, gp_ext, a_init,
+    _launch("map_fused", "turbo_fused", "turbo_map_fused", 7, 6, gs_ext, gp_ext, a_init,
             b_init, astore, bstore, out, n, t_train, l_win, nof_b, nof_w, radix)
-    map_fused.launches += 1
     return out
-
-
-map_fused.launches = 0
 
 
 def map_fused16_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,
@@ -370,13 +357,9 @@ def map_fused16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     out = gs_ext.new_empty((l_win, n))
     astore = gs_ext.new_empty((l_win // 4, 8, n), dtype=torch.bfloat16)
     bstore = gs_ext.new_empty((l_win // 4, 8, n), dtype=torch.bfloat16)
-    _launch("turbo_fused", "turbo_map_fused16", 7, 5, gs_ext, gp_ext, a_init,
-            b_init, astore, bstore, out, n, t_train, l_win, nof_b, nof_w)
-    map_fused16.launches += 1
+    _launch("map_fused16", "turbo_fused", "turbo_map_fused16", 7, 5, gs_ext, gp_ext,
+            a_init, b_init, astore, bstore, out, n, t_train, l_win, nof_b, nof_w)
     return out
-
-
-map_fused16.launches = 0
 
 
 # --- the split sweep / emission half-iteration (turbo_sweep/emit.cu) -------
@@ -423,13 +406,9 @@ def sweep(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
     n = gs_ext.shape[1]
     astore = gs_ext.new_empty((l_win // 2, 8, n))
     bstore = gs_ext.new_empty((l_win // 2, 8, n))
-    _launch("turbo_sweep", "turbo_sweep", 6, 6, gs_ext, gp_ext, a_init, b_init,
+    _launch("sweep", "turbo_sweep", "turbo_sweep", 6, 6, gs_ext, gp_ext, a_init, b_init,
             astore, bstore, n, t_train, l_win, nof_b, nof_w, radix)
-    sweep.launches += 1
     return astore, bstore
-
-
-sweep.launches = 0
 
 
 def emit_ref(g2s, g2p, astore, bstore) -> torch.Tensor:
@@ -471,12 +450,9 @@ def emit(g2s: torch.Tensor, g2p: torch.Tensor, astore: torch.Tensor,
     if not _check_tensors("emit", (g2s, g2p, astore, bstore)):
         return emit_ref(g2s, g2p, astore, bstore)
     out = g2s.new_empty((l2, 2, n))
-    _launch("turbo_emit", "turbo_emit", 5, 2, g2s, g2p, astore, bstore, out, n, l2)
-    emit.launches += 1
+    _launch("emit", "turbo_emit", "turbo_emit", 5, 2, g2s, g2p, astore, bstore, out, n,
+            l2)
     return out
-
-
-emit.launches = 0
 
 
 # --- input checks and launches ----------------------------------------------
@@ -535,9 +511,13 @@ def _kernel(source: str, symbol: str, n_ptr: int, n_int: int):
     return fn
 
 
-def _launch(source: str, symbol: str, n_ptr: int, n_int: int, *args) -> None:
+launches: collections.Counter = collections.Counter()
+
+
+def _launch(kernel: str, source: str, symbol: str, n_ptr: int, n_int: int,
+            *args) -> None:
     """Launch on the current stream of the first tensor's device; raise if
-    the launch was refused."""
+    the launch was refused, else count it under ``launches[kernel]``."""
     fn = _kernel(source, symbol, n_ptr, n_int)
     tensors, ints = args[:n_ptr], args[n_ptr:]
     device = tensors[0].device
@@ -546,3 +526,4 @@ def _launch(source: str, symbol: str, n_ptr: int, n_int: int, *args) -> None:
         err = fn(*(x.data_ptr() for x in tensors), *ints, stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    launches[kernel] += 1

@@ -10,6 +10,10 @@ HARQ combining (repetitions and retransmissions accumulate).
 When E exceeds the circular buffer the indices repeat; on CUDA
 ``index_add`` sums the repeats with atomics in no fixed order, so the
 combined LLRs agree with the JAX package to float rounding, not bit for bit.
+
+The convolutionally-coded channels (PBCH, PDCCH; TS 36.212 §5.1.4.2) have
+their own gather (``conv_rm_indices``) and a dematching that sums repeats in
+transmit order, bit for bit as JAX does.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_4g_tpu_torch.utils.constants import RM_PERM_TC
+from srsran_4g_tpu_torch.utils.constants import RM_PERM_CC, RM_PERM_TC
 
 _NCOLS = 32
 
@@ -118,3 +122,49 @@ def rate_dematch(
         flat = softbuffer.reshape(batch + (3 * (k + 4),)).to(torch.float32)
     flat = flat.index_add(-1, g, e_llr.to(torch.float32))
     return flat.reshape(batch + (3, k + 4))
+
+
+# --- convolutionally-coded channels (TS 36.212 §5.1.4.2) ----------------------
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_rm_indices(n: int, e: int) -> np.ndarray:
+    """Rate-matching gather for convolutionally-coded channels (reference
+    rm_conv.c): indices (E,) into the flat (3*N,) d-streams."""
+    rows = (n + _NCOLS - 1) // _NCOLS
+    kp = rows * _NCOLS
+    y = np.full(kp, -1, dtype=np.int64)
+    y[kp - n:] = np.arange(n)
+    v = y.reshape(rows, _NCOLS)[:, RM_PERM_CC].T.reshape(-1)
+    w = np.concatenate([np.where(v >= 0, s * n + v, -1) for s in range(3)])
+    valid = w[w >= 0]
+    reps = (e + valid.shape[0] - 1) // valid.shape[0]
+    return np.tile(valid, reps)[:e]
+
+
+def conv_rate_match(d: torch.Tensor, e: int) -> torch.Tensor:
+    """d (B, 3, N) bits → (B, E)."""
+    n = d.shape[-1]
+    g = torch.as_tensor(conv_rm_indices(n, e), device=d.device)
+    return d.reshape(d.shape[:-2] + (3 * n,))[..., g]
+
+
+def conv_rate_dematch(e_llr: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, E) LLRs → (B, 3, N) combined d-stream LLRs.
+
+    Where E exceeds 3N the gather repeats (PDCCH at L=8 sends each of 3·44
+    bits about 4 times).  JAX's scatter-add sums the repeats in transmit
+    order; here the E positions are cut into passes over the 3N distinct
+    indices and the passes are added in that order, so the sums are the
+    same in every bit and no atomics are involved."""
+    e = e_llr.shape[-1]
+    period = 3 * n
+    idx = torch.as_tensor(conv_rm_indices(n, min(e, period)), device=e_llr.device)
+    x = e_llr.to(torch.float32)
+    acc = x[..., :min(e, period)]
+    for start in range(period, e, period):
+        part = x[..., start:start + period]
+        acc = torch.cat([acc[..., :part.shape[-1]] + part, acc[..., part.shape[-1]:]], dim=-1)
+    flat = torch.zeros(x.shape[:-1] + (period,), dtype=torch.float32, device=x.device)
+    flat[..., idx] = acc
+    return flat.reshape(x.shape[:-1] + (3, n))

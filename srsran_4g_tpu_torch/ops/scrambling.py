@@ -14,9 +14,19 @@ def pdsch_cinit(rnti: int, codeword: int, subframe: int, cell_id: int) -> int:
     return (rnti << 14) + (codeword << 13) + (subframe << 9) + cell_id
 
 
+def pbch_cinit(cell_id: int) -> int:
+    """c_init for PBCH scrambling (TS 36.211 §6.6.1)."""
+    return cell_id
+
+
 def pcfich_cinit(subframe: int, cell_id: int) -> int:
     """c_init for PCFICH scrambling (TS 36.211 §6.7.1)."""
     return (subframe + 1) * (2 * cell_id + 1) * (1 << 9) + cell_id
+
+
+def pdcch_cinit(subframe: int, cell_id: int) -> int:
+    """c_init for PDCCH scrambling (TS 36.211 §6.8.2): n_s = 2·subframe."""
+    return (subframe << 9) + cell_id
 
 
 def scramble_bits(bits: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:

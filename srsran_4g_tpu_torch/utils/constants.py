@@ -133,6 +133,13 @@ RM_PERM_TC = np.asarray(
     dtype=np.int64,
 )
 
+# Inter-column permutation for convolutionally-coded channels (§5.1.4.2.1).
+RM_PERM_CC = np.asarray(
+    [1, 17, 9, 25, 5, 21, 13, 29, 3, 19, 11, 27, 7, 23, 15, 31,
+     0, 16, 8, 24, 4, 20, 12, 28, 2, 18, 10, 26, 6, 22, 14, 30],
+    dtype=np.int64,
+)
+
 # --- CRC generator polynomials (TS 36.212 §5.1.1), MSB-first incl. x^order --
 CRC_POLYS = {
     "24A": (0x1864CFB, 24),

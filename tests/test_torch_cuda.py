@@ -2,9 +2,11 @@
 map_fused at radix 2 and 4, sweep at radix 2 and 4, emit, map_v3) against
 its plain torch version (atol 1e-3, f32 with the same arithmetic; map_v3
 also equal to turbo_map's LLRs), the bf16 kernels (map_fused16,
-map_windowed16) equal to their plain versions, and the PDSCH, TM4 2x2 and
-DL-from-samples receivers on CUDA against the same receivers on the CPU
-(identical ids, bits and crc_ok).
+map_windowed16) equal to their plain versions, every probe kernel
+(ops/cuda/probes.py) against its plain version (f32 atol 1e-3, bf16 equal),
+and the PDSCH, TM4 2x2, DL-from-samples and control-channel receivers on
+CUDA against the same receivers on the CPU (identical ids, bits, flags and
+crc_ok).
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -18,9 +20,10 @@ import pytest
 import torch
 
 from srsran_4g_tpu_torch.channel import awgn
-from srsran_4g_tpu_torch.models import enb_dl, grid, pdsch, pdsch_mimo, ue_dl
+from srsran_4g_tpu_torch.models import (chest, enb_dl, grid, pbch, pcfich, pdcch, pdsch,
+                                        pdsch_mimo, phich, ue_dl)
 from srsran_4g_tpu_torch.ops import turbo
-from srsran_4g_tpu_torch.ops.cuda import turbo_map
+from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
 
 torch.set_num_threads(2)
 
@@ -45,10 +48,10 @@ def _inputs(device, b, k, l, t):
                                      (4, 512, 64, 31), (2, 40, 40, 0)])
 def test_kernel_matches_plain(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
-    before = turbo_map.map_windowed.launches
+    before = turbo_map.launches["map_windowed"]
     got = turbo_map.map_windowed(*args)
     torch.cuda.synchronize()
-    assert turbo_map.map_windowed.launches == before + 1
+    assert turbo_map.launches["map_windowed"] == before + 1
     want = turbo_map.map_windowed_ref(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
 
@@ -57,10 +60,10 @@ def test_kernel_matches_plain(cuda_device, b, k, l, t):
 @pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16)])
 def test_map_fused_matches_plain(cuda_device, b, k, l, t, radix):
     args = _inputs(cuda_device, b, k, l, t)
-    before = turbo_map.map_fused.launches
+    before = turbo_map.launches["map_fused"]
     got = turbo_map.map_fused(*args, radix=radix)
     torch.cuda.synchronize()
-    assert turbo_map.map_fused.launches == before + 1
+    assert turbo_map.launches["map_fused"] == before + 1
     want = turbo_map.map_fused_ref(*args, radix=radix)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
 
@@ -69,13 +72,14 @@ def test_map_fused_matches_plain(cuda_device, b, k, l, t, radix):
 @pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (8, 424, 106, 32), (4, 512, 64, 16)])
 def test_sweep_and_emit_match_plain(cuda_device, b, k, l, t, radix):
     args = _inputs(cuda_device, b, k, l, t)
-    before = (turbo_map.sweep.launches, turbo_map.emit.launches)
+    before = (turbo_map.launches["sweep"], turbo_map.launches["emit"])
     stores = turbo_map.sweep(*args, radix=radix)
     n = args[0].shape[1]
     g2 = [x[t:t + l].view(l // 2, 2, n) for x in args[:2]]
     got = turbo_map.emit(*g2, *stores)
     torch.cuda.synchronize()
-    assert (turbo_map.sweep.launches, turbo_map.emit.launches) == (before[0] + 1, before[1] + 1)
+    assert (turbo_map.launches["sweep"], turbo_map.launches["emit"]) == (
+        before[0] + 1, before[1] + 1)
     for g, w in zip(stores, turbo_map.sweep_ref(*args, radix=radix)):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=1e-3, rtol=0)
     want = turbo_map.emit_ref(*g2, *stores)
@@ -85,10 +89,10 @@ def test_sweep_and_emit_match_plain(cuda_device, b, k, l, t, radix):
 @pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16)])
 def test_map_fused16_equals_plain(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
-    before = turbo_map.map_fused16.launches
+    before = turbo_map.launches["map_fused16"]
     got = turbo_map.map_fused16(*args)
     torch.cuda.synchronize()
-    assert turbo_map.map_fused16.launches == before + 1
+    assert turbo_map.launches["map_fused16"] == before + 1
     want = turbo_map.map_fused16_ref(*args)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
@@ -97,10 +101,10 @@ def test_map_fused16_equals_plain(cuda_device, b, k, l, t):
                                      (4, 512, 64, 31), (2, 40, 40, 0)])
 def test_map_windowed16_equals_plain(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
-    before = turbo_map.map_windowed16.launches
+    before = turbo_map.launches["map_windowed16"]
     got = turbo_map.map_windowed16(*args)
     torch.cuda.synchronize()
-    assert turbo_map.map_windowed16.launches == before + 1
+    assert turbo_map.launches["map_windowed16"] == before + 1
     want = turbo_map.map_windowed16_ref(*args)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
@@ -108,10 +112,10 @@ def test_map_windowed16_equals_plain(cuda_device, b, k, l, t):
 @pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (3, 424, 106, 31), (3, 40, 40, 0)])
 def test_map_v3_matches_plain_and_turbo_map(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
-    before = turbo_map.map_v3.launches
+    before = turbo_map.launches["map_v3"]
     got = turbo_map.map_v3(*args)
     torch.cuda.synchronize()
-    assert turbo_map.map_v3.launches == before + 1
+    assert turbo_map.launches["map_v3"] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), turbo_map.map_windowed(*args).cpu().numpy())
     want = turbo_map.map_v3_ref(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
@@ -154,9 +158,9 @@ def test_tm4_on_card_matches_cpu(cuda_device):
                         dtype=torch.complex64, device=cuda_device)
     rx = awgn.awgn(torch.einsum("rt,btsk->brsk", hmat, tx), awgn.snr_to_noise_var(20.0),
                    torch.Generator(device=cuda_device).manual_seed(3))
-    before = turbo_map.map_fused16.launches  # the default route, v9
+    before = turbo_map.launches["map_fused16"]  # the default route, v9
     out_gpu = pdsch_mimo.decode(cfg, rx, n_iter=4)
-    assert turbo_map.map_fused16.launches > before
+    assert turbo_map.launches["map_fused16"] > before
     out_cpu = pdsch_mimo.decode(cfg, rx.cpu(), n_iter=4)
     for key in ("bits0", "bits1", "crc_ok0", "crc_ok1"):
         np.testing.assert_array_equal(out_gpu[key].cpu().numpy(), out_cpu[key].numpy(),
@@ -174,10 +178,99 @@ def test_pdsch_on_card_matches_cpu(cuda_device):
     assert tx.device.type == "cuda"
     rx = awgn.awgn(tx, awgn.snr_to_noise_var(8.0),
                    torch.Generator(device=cuda_device).manual_seed(1))
-    before = turbo_map.map_fused16.launches  # the default route, v9
+    before = turbo_map.launches["map_fused16"]  # the default route, v9
     out_gpu = pdsch.decode(cfg, rx, n_iter=4)
-    assert turbo_map.map_fused16.launches > before
+    assert turbo_map.launches["map_fused16"] > before
     out_cpu = pdsch.decode(cfg, rx.cpu(), n_iter=4)
     np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), out_cpu["bits"].numpy())
     np.testing.assert_array_equal(out_gpu["crc_ok"].cpu().numpy(), out_cpu["crc_ok"].numpy())
     np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), bits)
+
+
+# --- the probe kernels ---------------------------------------------------------
+
+
+def _rand(device, shape, seed, scale=4.0, dtype=torch.float32):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("variant", probes.PROBE2_VARIANTS)
+def test_probe2_kernels_match_plain(cuda_device, variant):
+    n, steps = 5000, 72
+    g, a0 = _rand(cuda_device, (176, n), 1), _rand(cuda_device, (8, n), 2, 1.0)
+    before = turbo_map.launches[f"probe2_{variant}"]
+    got = probes.probe2(variant, g, g, a0, steps, 112, 56)
+    torch.cuda.synchronize()
+    assert turbo_map.launches[f"probe2_{variant}"] == before + 1
+    want = probes.probe2_ref(variant, g, g, a0, steps, 112, 56)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("threads,smem", [(128, 0), (1024, 0),
+                                          (128, probes.ONE_BLOCK_PER_SM_SMEM)])
+def test_probe_empty_matches_plain(cuda_device, threads, smem):
+    x = _rand(cuda_device, (16, 86528), 3)
+    got = probes.probe_empty([x, x], 8, threads=threads, smem=smem)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got[0].cpu().numpy(), x[0].cpu().numpy())
+
+
+def test_probe6_kernels_match_plain(cuda_device):
+    n, steps = 6000, 72
+    g2s, g2p = _rand(cuda_device, (steps, 2, n), 4), _rand(cuda_device, (steps, 2, n), 5)
+    a0, b0 = _rand(cuda_device, (8, n), 6, 1.0), _rand(cuda_device, (8, n), 7, 1.0)
+    for got, want in zip(probes.probe6_full(g2s, g2p, a0, b0),
+                         probes.probe6_full_ref(g2s, g2p, a0, b0)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
+    for got, want in zip(probes.probe6_skel(a0, b0, steps),
+                         probes.probe6_skel_ref(a0, b0, steps)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
+    h = n // 2
+    g16 = [_rand(cuda_device, (steps, 2, 2, h), 8 + i, dtype=torch.bfloat16) for i in range(2)]
+    m16 = [_rand(cuda_device, (16, h), 10 + i, 1.0, torch.bfloat16) for i in range(2)]
+    for got, want in zip(probes.probe6_bf16(*g16, *m16), probes.probe6_bf16_ref(*g16, *m16)):
+        np.testing.assert_array_equal(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe7_kernels_match_plain(cuda_device, dtype):
+    g = _rand(cuda_device, (2, 4096), 12, 0.5, dtype)
+    a0 = _rand(cuda_device, (8, 4096), 13, 1.0, dtype)
+    got, want = probes.probe7(g, a0, 256), probes.probe7_ref(g, a0, 256)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
+    else:
+        np.testing.assert_array_equal(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+def test_control_channels_on_card_match_cpu(cuda_device):
+    cell = grid.CellConfig(nof_prb=25, cell_id=301, cfi=2)
+    cfg = pdsch.PdschConfig(cell=cell, rnti=0x3D, subframe=0, mod="16qam", tbs=1000)
+    rng = np.random.default_rng(9)
+    b, n_bits = 3, 25
+    tb = rng.integers(0, 2, (b, cfg.tbs)).astype(np.int8)
+    mib = rng.integers(0, 2, (b, 24)).astype(np.int8)
+    d = rng.integers(0, 2, (b, n_bits)).astype(np.int8)
+    ack = rng.integers(0, 2, b).astype(np.int8)
+    g = enb_dl.assemble_subframe(cfg, tb, mib_bits=mib, dcis=[(d, 0x3D, 2, 4)])
+    g = phich.put_into_grid(cell, g, phich.encode(cell, torch.as_tensor(ack, device=g.device),
+                                                  1, 6, 0), 1)
+    rx = awgn.awgn(g, awgn.snr_to_noise_var(20.0),
+                   torch.Generator(device=cuda_device).manual_seed(5))
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        r = rx.to(dev)
+        est = chest.estimate(chest.ChestConfig(cell=cell), r, 0)
+        h, nv = est["h"], est["noise_var"]
+        m = pbch.decode(cell, r, h, nv)
+        bd = pdcch.blind_decode(cell, 2, 0, r, h, nv, rnti=0x3D, dci_len=n_bits)
+        outs[dev.type] = dict(cfi=pcfich.decode(cell, r, h, nv, 0)["cfi"], mib=m["mib"],
+                              mib_ok=m["crc_ok"], ack=phich.decode(cell, r, h, nv, 1, 6, 0)["ack"],
+                              found=bd["found"], dci=bd["dci"], cand=bd["candidate"])
+    for key, got in outs["cuda"].items():
+        np.testing.assert_array_equal(got.cpu().numpy(), outs["cpu"][key].numpy(), err_msg=key)
+    np.testing.assert_array_equal(outs["cuda"]["mib"].cpu().numpy(), mib)
+    np.testing.assert_array_equal(outs["cuda"]["dci"].cpu().numpy(), d)
+    np.testing.assert_array_equal(outs["cuda"]["ack"].cpu().numpy(), ack)

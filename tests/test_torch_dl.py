@@ -7,11 +7,14 @@ arrays so both packages see the same capture.  Tolerances: OFDM samples and
 grids atol 1e-5 (two FFT libraries); assembled grids atol 1e-6; PSS/SSS ids,
 offsets, phases, CFI, decoded bits and CRC flags identical; CFO atol 1e-4.
 Sizes stay at 6 and 25 PRB (75 PRB for the 1536-point FFT only): the 20 MHz
-path is chip_smoke.py's job.
+path is chip_smoke.py's job.  The JAX side runs its functions under
+``jax.jit`` (as its runtime does), which compiles each once instead of op by
+op, and the transmitted subframes are built once per module.
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +37,13 @@ torch.set_num_threads(2)
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _jit(fn, *args, **kw):
+    """The JAX function fn with its leading and keyword arguments fixed,
+    under jax.jit; one compiled function per module and arguments."""
+    return jax.jit(functools.partial(fn, *args, **kw))
 
 
 def _grid(rng, shape):
@@ -73,16 +83,16 @@ def test_ofdm_matches_jax(kw):
     rng = np.random.default_rng(cfg.nof_prb)
     g = _grid(rng, (2, cfg.nsymb_sf, cfg.nre))
     x = ofdm.modulate(cfg, torch.as_tensor(g))
-    np.testing.assert_allclose(_np(x), _np(j_ofdm.modulate(jcfg, jnp.asarray(g))),
+    np.testing.assert_allclose(_np(x), _np(_jit(j_ofdm.modulate, jcfg)(jnp.asarray(g))),
                                atol=1e-5, rtol=0)
     y = x.numpy() + _noise(rng, x.shape, 1e-2)
     got = ofdm.demodulate(cfg, torch.as_tensor(y))
-    np.testing.assert_allclose(_np(got), _np(j_ofdm.demodulate(jcfg, jnp.asarray(y))),
+    np.testing.assert_allclose(_np(got), _np(_jit(j_ofdm.demodulate, jcfg)(jnp.asarray(y))),
                                atol=1e-5, rtol=0)
     if not cfg.normal_cp:
         np.testing.assert_allclose(
             _np(ofdm.demodulate_mbsfn(cfg, torch.as_tensor(y))),
-            _np(j_ofdm.demodulate_mbsfn(jcfg, jnp.asarray(y))), atol=1e-5, rtol=0)
+            _np(_jit(j_ofdm.demodulate_mbsfn, jcfg)(jnp.asarray(y))), atol=1e-5, rtol=0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,27 +112,27 @@ def test_sync_functions_match_jax():
     cap, offs, ids = _pss_capture()
     sz = 128
     got = sync.find_pss(torch.as_tensor(cap), sz)
-    want = j_sync.find_pss(jnp.asarray(cap), sz)
+    want = _jit(j_sync.find_pss, symbol_sz=sz)(jnp.asarray(cap))
     for key in ("n_id_2", "offset"):
         np.testing.assert_array_equal(_np(got[key]), _np(want[key]), err_msg=key)
     np.testing.assert_array_equal(_np(got["n_id_2"]), ids)
     np.testing.assert_allclose(_np(got["corr"]), _np(want["corr"]), atol=1e-4, rtol=1e-4)
     seg = np.stack([cap[b, o:o + sz] for b, o in enumerate(offs)])
     cfo_t = sync.pss_cfo_estimate(torch.as_tensor(seg), got["n_id_2"], sz)
-    cfo_j = j_sync.pss_cfo_estimate(jnp.asarray(seg), want["n_id_2"], sz)
+    cfo_j = _jit(j_sync.pss_cfo_estimate, symbol_sz=sz)(jnp.asarray(seg), want["n_id_2"])
     np.testing.assert_allclose(_np(cfo_t), _np(cfo_j), atol=1e-4, rtol=0)
     np.testing.assert_allclose(_np(sync.pss_cfo_estimate(torch.as_tensor(seg[:1]), 1, sz)),
                                _np(j_sync.pss_cfo_estimate(jnp.asarray(seg[:1]), 1, sz)),
                                atol=1e-4, rtol=0)
     fixed_t = sync.cfo_correct(torch.as_tensor(cap), cfo_t, sz)
-    fixed_j = j_sync.cfo_correct(jnp.asarray(cap), cfo_j, sz)
+    fixed_j = _jit(j_sync.cfo_correct, symbol_sz=sz)(jnp.asarray(cap), cfo_j)
     np.testing.assert_allclose(_np(fixed_t), _np(fixed_j), atol=1e-4, rtol=0)
 
     cfg, jcfg = ofdm.OfdmConfig(nof_prb=6), j_ofdm.OfdmConfig(nof_prb=6)
-    x = _np(j_ofdm.modulate(jcfg, jnp.asarray(_grid(np.random.default_rng(1), (2, 14, 72)))))
+    x = _np(_jit(j_ofdm.modulate, jcfg)(jnp.asarray(_grid(np.random.default_rng(1), (2, 14, 72)))))
     x = x * np.exp(2j * np.pi * 0.21 * np.arange(x.shape[-1]) / 128).astype(np.complex64)
     np.testing.assert_allclose(_np(sync.cp_cfo_estimate(cfg, torch.as_tensor(x))),
-                               _np(j_sync.cp_cfo_estimate(jcfg, jnp.asarray(x))),
+                               _np(_jit(j_sync.cp_cfo_estimate, jcfg)(jnp.asarray(x))),
                                atol=1e-4, rtol=0)
 
     rng = np.random.default_rng(0)
@@ -130,7 +140,7 @@ def test_sync_functions_match_jax():
         rx = (rng.standard_normal((4, 62)) + 1j * rng.standard_normal((4, 62))).astype(np.complex64)
         rx[:2] += 3 * j_sync.sss_sequences()[[5, 160], [0, 1]]
         got_s = sync.sss_detect(torch.as_tensor(rx), n_id_2)
-        want_s = j_sync.sss_detect(jnp.asarray(rx), n_id_2)
+        want_s = _jit(j_sync.sss_detect, n_id_2=n_id_2)(jnp.asarray(rx))
         for key in ("n_id_1", "phase"):
             np.testing.assert_array_equal(_np(got_s[key]), _np(want_s[key]), err_msg=key)
         np.testing.assert_allclose(_np(got_s["corr"]), _np(want_s["corr"]), atol=1e-4)
@@ -162,7 +172,7 @@ def _jax_tx(subframe):
     package's assembled grid."""
     cfg, jcfg = _pdsch_cfgs(25, 123, subframe, "16qam", 1000, cfi=2, rnti=0x1234)
     bits = np.random.default_rng(7 + subframe).integers(0, 2, size=(2, 1000)).astype(np.int8)
-    return cfg, jcfg, bits, _np(j_enb.assemble_subframe(jcfg, jnp.asarray(bits)))
+    return cfg, jcfg, bits, _np(_jit(j_enb.assemble_subframe, jcfg)(jnp.asarray(bits)))
 
 
 @pytest.mark.parametrize("subframe", [0, 5])
@@ -171,7 +181,7 @@ def test_assemble_subframe_matches_jax(subframe):
     got = enb_dl.assemble_subframe(cfg, bits, device="cpu")
     np.testing.assert_allclose(_np(got), want, atol=1e-6, rtol=0)
     np.testing.assert_allclose(_np(enb_dl.subframe_to_samples(cfg.cell, got)),
-                               _np(j_enb.subframe_to_samples(jcfg.cell, jnp.asarray(want))),
+                               _np(_jit(j_enb.subframe_to_samples, jcfg.cell)(jnp.asarray(want))),
                                atol=1e-5, rtol=0)
     g0 = torch.zeros((1, 14, 300), dtype=torch.complex64)
     for sf in (0, 1, 5, 6):
@@ -184,7 +194,7 @@ def test_pcfich_matches_jax():
     cell, jcell = _cells(25, 77)
     cfi = np.array([1, 2, 3, 2], np.int32)
     syms = pcfich.encode(cell, torch.as_tensor(cfi), 4)
-    np.testing.assert_allclose(_np(syms), _np(j_pcfich.encode(jcell, jnp.asarray(cfi), 4)),
+    np.testing.assert_allclose(_np(syms), _np(_jit(j_pcfich.encode, jcell, subframe=4)(jnp.asarray(cfi))),
                                atol=1e-6)
     np.testing.assert_array_equal(pcfich.pcfich_re_indices(cell),
                                   j_pcfich.pcfich_re_indices(jcell))
@@ -193,19 +203,31 @@ def test_pcfich_matches_jax():
     rx = g.numpy() + _noise(rng, g.shape, 0.3)
     h = np.ones(g.shape, np.complex64)
     got = pcfich.decode(cell, torch.as_tensor(rx), torch.as_tensor(h), 0.3, 4)
-    want = j_pcfich.decode(jcell, jnp.asarray(rx), jnp.asarray(h), 0.3, 4)
+    want = _jit(j_pcfich.decode, jcell, subframe=4)(jnp.asarray(rx), jnp.asarray(h), 0.3)
     np.testing.assert_array_equal(_np(got["cfi"]), _np(want["cfi"]))
     np.testing.assert_array_equal(_np(got["cfi"]), cfi)
     np.testing.assert_allclose(_np(got["corr"]), _np(want["corr"]), atol=1e-3, rtol=1e-5)
 
 
 def test_enb_dl_refuses_pbch_and_pdcch():
-    cfg, _ = _pdsch_cfgs(6, 1, 0, "qpsk", 120)
-    bits = np.zeros((1, 120), np.int8)
-    with pytest.raises(NotImplementedError, match="pbch"):
-        enb_dl.assemble_subframe(cfg, bits, mib_bits=np.zeros((1, 24), np.int8), device="cpu")
-    with pytest.raises(NotImplementedError, match="pdcch"):
-        enb_dl.assemble_subframe(cfg, bits, dcis=[(bits[:, :27], 0x50, 4, 0)], device="cpu")
+    # the control-channel slice lifted the refusal: a subframe 0 with a MIB
+    # and a DCI now equals the JAX package's (tests/test_torch_control.py
+    # holds the channels themselves); random TB, MIB and DCI bits, so that a
+    # fault that maps zeros to zeros shows
+    cfg, jcfg = _pdsch_cfgs(6, 1, 0, "qpsk", 120)
+    rng = np.random.default_rng(12)
+    bits = rng.integers(0, 2, (2, 120)).astype(np.int8)
+    mib = rng.integers(0, 2, (2, 24)).astype(np.int8)
+    dci = rng.integers(0, 2, (2, 27)).astype(np.int8)
+    got = enb_dl.assemble_subframe(cfg, bits, mib_bits=mib, dcis=[(dci, 0x50, 2, 0)],
+                                   device="cpu")
+
+    def assemble(bits, mib, dci):
+        return j_enb.assemble_subframe(jcfg, bits, mib_bits=mib, dcis=[(dci, 0x50, 2, 0)])
+
+    want = jax.jit(assemble)(jnp.asarray(bits), jnp.asarray(mib), jnp.asarray(dci))
+    assert float(np.abs(_np(want)).mean()) > 0.1
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=0)
 
 
 def _search_capture(cell_id):
@@ -214,7 +236,8 @@ def _search_capture(cell_id):
     cfg, jcfg = _pdsch_cfgs(6, cell_id, 0, "qpsk", 120)
     rng = np.random.default_rng(cell_id)
     bits = rng.integers(0, 2, size=(2, cfg.tbs)).astype(np.int8)
-    sf = _np(j_enb.subframe_to_samples(jcfg.cell, j_enb.assemble_subframe(jcfg, bits)))
+    sf = _np(_jit(j_enb.subframe_to_samples, jcfg.cell)(
+        _jit(j_enb.assemble_subframe, jcfg)(jnp.asarray(bits))))
     cap = np.concatenate([np.zeros((2, 333), np.complex64), sf,
                           np.zeros((2, 400), np.complex64)], axis=-1)
     cap = cap * np.exp(2j * np.pi * 0.12 * np.arange(cap.shape[-1]) / 128).astype(np.complex64)
@@ -225,7 +248,7 @@ def _search_capture(cell_id):
 def test_cell_search_matches_jax(cell_id):
     cap = _search_capture(cell_id)
     got = ue_dl.cell_search(torch.as_tensor(cap), 6)
-    want = j_ue.cell_search(jnp.asarray(cap), 6)
+    want = _jit(j_ue.cell_search, nof_prb=6)(jnp.asarray(cap))
     for key in ("cell_id", "n_id_2", "n_id_1", "phase"):
         np.testing.assert_array_equal(_np(got[key]), _np(want[key]), err_msg=key)
     np.testing.assert_array_equal(_np(got["cell_id"]), cell_id)
@@ -239,7 +262,7 @@ def _capture_25(rng, lead, cfo):
     each after its lead, with a random phase, its CFO (subcarriers) and
     noise at 30 dB; 1,000 samples longer than the subframe."""
     _, jcfg, _, tx = _jax_tx(5)
-    sf = _np(j_enb.subframe_to_samples(jcfg.cell, jnp.asarray(tx)))
+    sf = _np(_jit(j_enb.subframe_to_samples, jcfg.cell)(jnp.asarray(tx)))
     n = sf.shape[-1] + 1000
     cap = np.zeros((len(lead), n), np.complex64)
     for i, start in enumerate(lead):
@@ -255,10 +278,10 @@ def test_cell_search_above_6_prb_matches_jax_functions():
     cap = _capture_25(np.random.default_rng(5), (333, 20), (0.12, -0.3))
     got = ue_dl.cell_search(torch.as_tensor(cap), 25)
     jcfg = j_ofdm.OfdmConfig(nof_prb=25)
-    found = j_sync.find_pss(jnp.asarray(cap), 512)
-    sf = j_ue.align_subframe(jnp.asarray(cap), found["offset"], jcfg)
-    cfo = j_sync.cp_cfo_estimate(jcfg, sf)
-    sf = j_sync.cfo_correct(sf, cfo, 512)
+    found = _jit(j_sync.find_pss, symbol_sz=512)(jnp.asarray(cap))
+    sf = _jit(j_ue.align_subframe, cfg=jcfg)(jnp.asarray(cap), found["offset"])
+    cfo = _jit(j_sync.cp_cfo_estimate, jcfg)(sf)
+    sf = _jit(j_sync.cfo_correct, symbol_sz=512)(sf, cfo)
     body = int(j_ofdm._symbol_offsets(jcfg)[6])
     np.testing.assert_array_equal(_np(got["offset"]), _np(found["offset"]))
     np.testing.assert_array_equal(_np(got["offset"]), np.array([333, 20]) + body)
@@ -266,7 +289,8 @@ def test_cell_search_above_6_prb_matches_jax_functions():
     np.testing.assert_array_equal(_np(got["phase"]), 1)
     np.testing.assert_allclose(_np(got["cfo"]), _np(cfo), atol=1e-4, rtol=0)
     np.testing.assert_allclose(_np(got["cfo"]), (0.12, -0.3), atol=0.02)
-    np.testing.assert_allclose(_np(got["grid"]), _np(j_ofdm.demodulate(jcfg, sf)), atol=1e-3)
+    np.testing.assert_allclose(_np(got["grid"]), _np(_jit(j_ofdm.demodulate, jcfg)(sf)),
+                               atol=1e-3)
 
 
 @pytest.mark.parametrize("shift", [-1, 0, 1, 2, 7])
@@ -275,7 +299,7 @@ def test_pss_timing_error_measures_window_shift(shift):
     # samples early (inside the CP; -1 reaches one sample into the next
     # symbol), 25 PRB, 30 dB
     cfg, jcfg, _, tx = _jax_tx(5)
-    sf = _np(j_enb.subframe_to_samples(jcfg.cell, jnp.asarray(tx)))
+    sf = _np(_jit(j_enb.subframe_to_samples, jcfg.cell)(jnp.asarray(tx)))
     cap = np.concatenate([np.zeros((2, 40), np.complex64), sf,
                           np.zeros((2, 40), np.complex64)], axis=-1)
     cap = cap + _noise(np.random.default_rng(shift + 10), cap.shape, 1e-3)
@@ -304,10 +328,10 @@ def test_cell_search_finds_exact_timing_at_25_prb():
 def test_receive_pdsch_subframe_matches_jax():
     cfg, jcfg, bits, tx = _jax_tx(0)
     rng = np.random.default_rng(7)
-    sf = _np(j_enb.subframe_to_samples(jcfg.cell, jnp.asarray(tx)))
+    sf = _np(_jit(j_enb.subframe_to_samples, jcfg.cell)(jnp.asarray(tx)))
     rx = sf * np.complex64(0.95 * np.exp(1j * 0.2)) + _noise(rng, sf.shape, 10 ** (-1.8) * 0.05)
     got = ue_dl.receive_pdsch_subframe(cfg, torch.as_tensor(rx))
-    want = j_ue.receive_pdsch_subframe(jcfg, jnp.asarray(rx))
+    want = _jit(j_ue.receive_pdsch_subframe, jcfg)(jnp.asarray(rx))
     np.testing.assert_array_equal(_np(got["crc_ok"]), _np(want["crc_ok"]))
     np.testing.assert_array_equal(_np(got["bits"]), _np(want["bits"]))
     assert _np(got["crc_ok"]).all()

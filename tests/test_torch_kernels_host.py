@@ -5,14 +5,15 @@ Each ``srsran_4g_tpu_torch/csrc/*.cu`` is built with the host C++ compiler
 against a stand-in ``cuda_runtime.h`` that defines the CUDA keywords and a
 sequential launch (every block and thread in turn), after the ``<<<...>>>``
 launches are rewritten as calls to it.  The C entry points that the
-wrappers of ``ops/cuda/turbo_map.py`` call through ctypes then run on CPU
+wrappers of ``ops/cuda/turbo_map.py`` and ``ops/cuda/probes.py`` call through ctypes then run on CPU
 buffers, so the kernels' indexing, schedules and arithmetic are checked
 here; only the card (tests/test_torch_cuda.py, chip_smoke.py) shows that
 nvcc builds them and that they run right in parallel.
 
 A stand-in ``cuda_bf16.h`` does the same for the 16-bit kernels: its
-``__nv_bfloat16`` is the 16-bit pattern, and ``__hadd``/``__hsub`` add or
-subtract in float and round to bf16 (round to nearest even) after every op,
+``__nv_bfloat16`` is the 16-bit pattern, ``__nv_bfloat162`` a pair of them,
+and ``__hadd``/``__hsub`` (and their pairwise ``2`` forms) add or subtract
+in float and round to bf16 (round to nearest even) after every op,
 which is what the card's bf16 instructions and torch's bf16 ops compute.
 
 Tolerance: atol 1e-3 for the f32 kernels, as on the card (the same
@@ -31,6 +32,7 @@ import pytest
 import torch
 
 from srsran_4g_tpu_torch.ops import turbo
+from srsran_4g_tpu_torch.ops.cuda import probes
 from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 from srsran_4g_tpu_torch.ops.cuda.build import CSRC
 
@@ -53,8 +55,12 @@ struct dim3 {
 };
 static dim3 gridDim, blockDim, blockIdx, threadIdx;
 typedef void* cudaStream_t;
+typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 static inline int cudaGetLastError() { return cudaSuccess; }
+template <class T>
+static inline int cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
 static inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 template <class F>
 static void host_launch(dim3 grid, dim3 block, F kernel) {
@@ -99,6 +105,26 @@ static inline __nv_bfloat16 __hsub(__nv_bfloat16 a, __nv_bfloat16 b) {
 static inline __nv_bfloat16 __hmax(__nv_bfloat16 a, __nv_bfloat16 b) {
   return __float2bfloat16_rn(fmaxf(__bfloat162float(a), __bfloat162float(b)));
 }
+struct __nv_bfloat162 {
+  __nv_bfloat16 x, y;
+};
+static inline __nv_bfloat162 __halves2bfloat162(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __nv_bfloat162{a, b};
+}
+static inline __nv_bfloat16 __low2bfloat16(__nv_bfloat162 v) { return v.x; }
+static inline __nv_bfloat16 __high2bfloat16(__nv_bfloat162 v) { return v.y; }
+static inline __nv_bfloat162 __bfloat162bfloat162(__nv_bfloat16 a) {
+  return __nv_bfloat162{a, a};
+}
+static inline __nv_bfloat162 __hadd2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __nv_bfloat162{__hadd(a.x, b.x), __hadd(a.y, b.y)};
+}
+static inline __nv_bfloat162 __hsub2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __nv_bfloat162{__hsub(a.x, b.x), __hsub(a.y, b.y)};
+}
+static inline __nv_bfloat162 __hmax2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __nv_bfloat162{__hmax(a.x, b.x), __hmax(a.y, b.y)};
+}
 """
 
 # kernel<<<grid, block, smem, stream>>>(args);  ->  host_launch(grid, block, [&] { kernel(args); });
@@ -112,7 +138,14 @@ _ENTRIES = {"turbo_map_windowed": ("turbo_map", 6, 5),
             "turbo_map_fused16": ("turbo_fused", 7, 5),
             "turbo_sweep": ("turbo_sweep", 6, 6),
             "turbo_emit": ("turbo_emit", 5, 2),
-            "turbo_map_v3": ("turbo_v3", 6, 5)}
+            "turbo_map_v3": ("turbo_v3", 6, 5),
+            "probe2": ("probe_acs", 5, 4),
+            "probe6_full": ("probe_acs", 6, 2),
+            "probe6_bf16": ("probe_acs", 6, 2),
+            "probe6_skel": ("probe_acs", 4, 2),
+            "probe7_f32": ("probe_acs", 3, 2),
+            "probe7_bf16": ("probe_acs", 3, 2),
+            "probe_empty": ("probe_launch", 3, 3)}
 
 
 @pytest.fixture(scope="module")
@@ -240,3 +273,69 @@ def test_turbo_v3_source_matches_plain(host_kernels, b, k, l, t):
     out, store = gs.new_empty((l, n)), gs.new_empty((l, 8, n))
     _run(host_kernels["turbo_map_v3"], *args[:4], store, out, n, t, l, b, k // l)
     _equal(out, tm.map_v3_ref(*args))
+
+
+# --- the probe kernels (probe_acs.cu, probe_launch.cu) -----------------------
+
+
+def _probe_inputs(shape, seed, scale=4.0):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+@pytest.mark.parametrize("variant", probes.PROBE2_VARIANTS)
+def test_probe2_source_matches_plain(host_kernels, variant):
+    n, steps, out_rows, store_rows = 37, 10, 16, 8
+    g, a0 = _probe_inputs((24, n), 2), _probe_inputs((8, n), 3, 1.0)
+    out, astore = g.new_empty((out_rows, n)), g.new_empty((store_rows, 8, n))
+    _run(host_kernels["probe2"], g, g, a0, out, astore, n, steps, store_rows,
+         probes.PROBE2_VARIANTS.index(variant))
+    want = probes.probe2_ref(variant, g, g, a0, steps, out_rows, store_rows)
+    np.testing.assert_allclose(out[0].numpy(), want[0].numpy(), atol=1e-3, rtol=0)
+    if variant == "astore":  # the store holds alpha before steps 8, 9 (slots 0, 1)
+        a = a0.clone()
+        for i in range(9):
+            a = probes._probe2_acs(a, g[2 * i], g[2 * i], g[2 * i + 1], g[2 * i + 1])
+        _close(astore[1], a)
+
+
+@pytest.mark.parametrize("threads,smem", [(16, 0), (32, probes.ONE_BLOCK_PER_SM_SMEM)])
+def test_probe_empty_source_matches_plain(host_kernels, threads, smem):
+    x = _probe_inputs((16, 50), 4)
+    out = x.new_zeros((8, 50))
+    _run(host_kernels["probe_empty"], x, x, out, 50, threads, smem)
+    _equal(out[0], probes.probe_empty_ref([x], 8)[0])
+
+
+def test_probe6_sources_match_plain(host_kernels):
+    n, steps = 21, 6
+    g2s, g2p = _probe_inputs((steps, 2, n), 5), _probe_inputs((steps, 2, n), 6)
+    a0, b0 = _probe_inputs((8, n), 7, 1.0), _probe_inputs((8, n), 8, 1.0)
+    aout, bout = a0.new_empty((8, n)), b0.new_empty((8, n))
+    _run(host_kernels["probe6_full"], g2s, g2p, a0, b0, aout, bout, n, steps)
+    for got, want in zip((aout, bout), probes.probe6_full_ref(g2s, g2p, a0, b0)):
+        _close(got, want)
+    _run(host_kernels["probe6_skel"], a0, b0, aout, bout, n, steps)
+    for got, want in zip((aout, bout), probes.probe6_skel_ref(a0, b0, steps)):
+        _close(got, want)
+    h = 11
+    g16 = [_probe_inputs((steps, 2, 2, h), 9 + i).to(torch.bfloat16) for i in range(2)]
+    m16 = [_probe_inputs((16, h), 11 + i, 1.0).to(torch.bfloat16) for i in range(2)]
+    out16 = [m.new_empty((16, h)) for m in m16]
+    _run(host_kernels["probe6_bf16"], *g16, *m16, *out16, h, steps)
+    for got, want in zip(out16, probes.probe6_bf16_ref(*g16, *m16)):
+        _equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe7_source_matches_plain(host_kernels, dtype):
+    n, iters = 18, 12
+    g = _probe_inputs((2, n), 13, 0.5).to(dtype)
+    a0 = _probe_inputs((8, n), 14, 1.0).to(dtype)
+    out = a0.new_empty((8, n))
+    if dtype == torch.float32:
+        _run(host_kernels["probe7_f32"], g, a0, out, n, iters)
+        _close(out, probes.probe7_ref(g, a0, iters))
+    else:
+        _run(host_kernels["probe7_bf16"], g, a0, out, n // 2, iters)
+        _equal(out, probes.probe7_ref(g, a0, iters))
