@@ -39,6 +39,11 @@ read just after:
   unpacks the grant and decodes the PDSCH it names, every field checked
   exactly on every capture.
 
+``map_fused16`` (the default route's kernel) is held exactly equal to its
+plain version (max |diff| 0), also at five tiles, a ragged last tile, one
+window and L/4 odd, and its launch geometry is logged beside its build's
+registers and spills.
+
 Output (stdout): the card's name and power limit, the build and check
 lines, per-path subframes/s (best of 3), a per-stage split, then one JSON
 line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -136,7 +141,7 @@ ROUTES = {
     "turbo_map": ("map_windowed", None, "turbo_map.cu", 272, "v4"),
     "map_windowed16": ("map_windowed16", None, "turbo_map.cu", 1323, "bf16"),
     "map_v3": ("map_v3", None, "turbo_v3.cu", 1189, "v3"),
-    "map_fused16": ("map_fused16", None, "turbo_fused.cu", 942, "v9"),
+    "map_fused16": ("map_fused16", None, "turbo_fused16.cu", 942, "v9"),
     "map_fused_r2": ("map_fused", 2, "turbo_fused.cu", 872, "v7"),
     "map_fused_r4": ("map_fused", 4, "turbo_fused.cu", 872, "v8"),
     "sweep_r2": ("sweep", 2, "turbo_sweep.cu", 1022, "v6"),
@@ -256,6 +261,9 @@ def check_kernel(route: str, args, time_it=False) -> dict:
         if err > ATOL16 or mean >= MEAN16 or not torch.equal(got > 0, want > 0):
             raise AssertionError(f"{route} kernel vs plain at {desc}: max |diff| {err}, "
                                  f"mean {mean}, or a hard decision differs")
+        if route == "map_fused16" and err != 0:
+            raise AssertionError(f"map_fused16 kernel vs plain at {desc}: max |diff| "
+                                 f"{err}, not 0")
     elif err > ATOL:
         raise AssertionError(f"{route} kernel vs plain at {desc}: max |diff| {err} > {ATOL}")
     res = dict(max_abs_err=err)
@@ -284,7 +292,11 @@ def check_kernels(dev, gen, b, k) -> dict:
              ((32, 512, 64, 31), any_shape),                                      # odd T
              ((32, 504, 63, 16), any_shape),                                      # odd L
              ((33, 40, 40, 0), any_shape),                                        # L = K, T = 0, N odd
-             ((64, 512, 64, 16), tuple(r for r in ROUTES if r not in any_shape))]  # L % 4 == 0
+             ((64, 512, 64, 16), tuple(r for r in ROUTES if r not in any_shape)),  # L % 4 == 0
+             ((5, 6144, 192, 32), ("map_fused16",)),  # N = 160, W = 32
+             ((3, 5824, 208, 32), ("map_fused16",)),  # N = 84: a ragged last tile
+             ((3, 40, 40, 32), ("map_fused16",)),     # W = 1
+             ((2, 6016, 188, 32), ("map_fused16",))]  # L/4 odd
     for shape, names in small:
         args = gamma_inputs(dev, gen, *shape)
         for r in names:
@@ -378,7 +390,8 @@ def staged_decode(cfg, rx):
 def profile_decode(cfg, rx, decode_s: float, card: str, reps: int = 3,
                    decode=None) -> None:
     """Device busy/idle share of the decode and its costliest kernels, from
-    torch.profiler over `reps` decodes against the unprofiled best time."""
+    torch.profiler over `reps` decodes against the unprofiled best time, and
+    the share of the turbo kernels (named *fused*, as the v9 route's is)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -395,9 +408,11 @@ def profile_decode(cfg, rx, decode_s: float, card: str, reps: int = 3,
         log(f"[{card}] profiler saw no device time: idle share not measured")
         return
     n_kernels = sum(e.count for e in kernels) / reps
+    turbo_ms = sum(e.self_device_time_total for e in kernels if "fused" in e.key) / 1e3 / reps
     log(f"[{card}] decode device time {busy_ms:.3f} ms in {n_kernels:.0f} kernels "
         f"per decode; idle share {1 - busy_ms / (decode_s * 1e3):.3f} of the "
-        f"unprofiled {decode_s * 1e3:.2f} ms")
+        f"unprofiled {decode_s * 1e3:.2f} ms; kernels named *fused* {turbo_ms:.4f} ms "
+        f"({turbo_ms / busy_ms:.3f} of the device time)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<4d} "
             f"{e.key[:90]}")
@@ -954,6 +969,7 @@ def main() -> None:
     from srsran_4g_tpu_torch.channel import awgn
     from srsran_4g_tpu_torch.models import grid, pdsch
     from srsran_4g_tpu_torch.ops.cuda import build
+    from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 
     torch.backends.cuda.matmul.allow_tf32 = False  # CRC matmuls: plain f32
     dev = torch.device("cuda")
@@ -986,6 +1002,9 @@ def main() -> None:
     grp = cfg.plan.groups[0]
     if (len(cfg.plan.groups), grp.count, grp.K) != (1, 13, 5824):
         raise AssertionError(f"unexpected segmentation {cfg.plan}")
+    geo = tm.fused16_geometry(BATCH * grp.count * (grp.K // 208), 208)
+    log(f"map_fused16 at the bench shape: {geo.lanes} lanes, {geo.threads} threads and "
+        f"{geo.smem_bytes} B of dynamic shared memory a block, grid {geo.grid}")
     kern = check_kernels(dev, gen, BATCH * grp.count, grp.K)
 
     # ---- the main path: encode → CRS → AWGN → decode ----------------------

@@ -1,7 +1,8 @@
 // The LTE turbo constituent code's trellis and the max-log-MAP steps that
 // the kernels of this directory share (turbo_map.cu and turbo_v3.cu take the
 // single-chain steps; turbo_fused.cu, turbo_sweep.cu and turbo_emit.cu the
-// paired ones).
+// paired ones; turbo_fused16.cu the trellis functions, with steps of its own
+// on packed state pairs).
 //
 // RSC code g0 = 1 + D^2 + D^3 (feedback), g1 = 1 + D + D^3.  State
 // s = (r1 << 2) | (r2 << 1) | r3, r1 the newest register.  Every function

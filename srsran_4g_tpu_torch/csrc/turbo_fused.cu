@@ -1,22 +1,20 @@
 // One windowed max-log-MAP half-iteration with the fused two-phase dataflow
 // (alpha and beta interleaved, emission against half-depth stores), for
-// NVIDIA Hopper (sm_90a).
+// NVIDIA Hopper (sm_90a), in f32.
 //
-// Replaces the TPU kernels map_windowed_pallas_v7
-// (srsran_4g_tpu/ops/pallas/turbo_map.py:872, body _make_kernel_v7 :641) and
-// map_windowed_pallas_v9 (:942, the same body at bf16 with train_norm):
-//   turbo_map_fused, radix 2: v7 (f32, no normalisation in training);
+// Replaces the TPU kernel map_windowed_pallas_v7
+// (srsran_4g_tpu/ops/pallas/turbo_map.py:872, body _make_kernel_v7 :641):
+//   turbo_map_fused, radix 2: v7 (no normalisation in training);
 //   turbo_map_fused, radix 4: v8 (radix4=True: one fused two-step ACS per
-//     row pair, the input and parity terms added as one sum);
-//   turbo_map_fused16: v9 (radix 2; gammas, initial metrics, every add and
-//     subtract and the stores in bf16; metrics minus state 0 after every
-//     training pair too; LLRs emitted as bf16 values in f32).
-// All three normalise to state 0 after every body pair.
+//     row pair, the input and parity terms added as one sum).
+// Both normalise to state 0 after every body pair.  The same body at bf16
+// with train_norm (v9, map_windowed_pallas_v9 :942) is turbo_fused16.cu,
+// which keeps its stores in shared memory.
 //
 // Contract (the Pallas entry's own, prepared by ops/turbo.py):
 //   gs, gp          (L+2T, N) f32  gamma rows, lane = window*B + block
 //   a0, b0          (8, N)    f32  initial alpha / beta metrics
-//   astore, bstore  (L/4, 8, N) f32, bf16 for v9: scratch for phase 1
+//   astore, bstore  (L/4, 8, N) f32 scratch for phase 1
 //   out             (L, N)    f32  a-posteriori LLRs
 // L % 4 == 0 and T even.  Alpha trains on rows [0, T), frozen on window-0
 // lanes (lane < B); beta trains on rows L+2T-1 down to L+T, frozen on
@@ -32,26 +30,19 @@
 // :825-867).  Each iteration's gamma rows and stored metrics are loaded one
 // iteration ahead.
 //
-// v9 runs one lane per thread in scalar bf16 (__hadd/__hsub/__hmax), not two
-// lanes packed in __nv_bfloat162: packing would halve the threads (23,296
-// at the bench shape, about 1.4 blocks of 128 per SM), so each SM would
-// have fewer independent chains to hide the ACS latency with, and the
-// lanes' train-freeze masks would have to be applied per half.  The bf16
-// type buys what the card can use here: half the store traffic.
-//
 // Where the stores live: in a device-memory scratch, [pos][state][lane] so a
 // warp's accesses coalesce, 2*(L/4)*8*N*4 B (155 MB at the 20 MHz bench
-// shape, L = 208, N = 46,592; half that in bf16).  Shared memory would need
-// 3,328 B per lane at L = 208, so 64 lanes per block and one block per SM:
-// 2 warps per SM, and the 46,592 lanes in 5.5 waves of one serial chain
-// each.  With the scratch in device memory every lane is resident at once
-// (about 3 blocks of 128 per SM), which hides the chain's latency better;
-// the cost is the scratch round trip, 310 MB (155 MB in bf16), half that of
-// turbo_map.cu's full-depth alpha store.
+// shape, L = 208, N = 46,592).  Shared memory would need 3,328 B per lane
+// at L = 208, so 64 lanes per block and one block per SM: 2 warps per SM,
+// and the 46,592 lanes in 5.5 waves of one serial chain each.  With the
+// scratch in device memory every lane is resident at once (about 3 blocks
+// of 128 per SM), which hides the chain's latency better; the cost is the
+// scratch round trip, 310 MB, half that of turbo_map.cu's full-depth alpha
+// store.
 //
 // What bounds it on the H100: the function must read 2*(L+2T)*N*4 B of
 // gamma and 2*8*N*4 B of initial metrics and write L*N*4 B of LLRs (143 MB
-// at the bench shape; v9 reads them as f32 and rounds in registers) against
+// at the bench shape) against
 // about 39 operations per trellis step per chain and 40 per emitted LLR, so
 // the bytes bound it.
 
@@ -103,9 +94,8 @@ __device__ __forceinline__ void store8(M* p, size_t ns, const M x[8]) {
   for (int s = 0; s < 8; ++s) p[s * ns] = x[s];
 }
 
-// M: metric and store type.  TRAIN_NORM: minus state 0 after every training
-// pair too (v9's train_norm).
-template <int RADIX, class M, bool TRAIN_NORM>
+// M: metric and store type.
+template <int RADIX, class M>
 __global__ void __launch_bounds__(128)
 fused_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
              const float* __restrict__ a0, const float* __restrict__ b0,
@@ -140,10 +130,6 @@ fused_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
     copy8(b, nb);
     advance_a<RADIX>(na, ga);
     advance_b<RADIX>(nb, gb);
-    if (TRAIN_NORM) {
-      norm0(na);
-      norm0(nb);
-    }
     if (m_a) copy8(na, a);
     if (m_b) copy8(nb, b);
   }
@@ -223,26 +209,10 @@ extern "C" int turbo_map_fused(const float* gs, const float* gp,
   const int blocks = (n + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
   if (radix == 4)
-    fused_kernel<4, float, false><<<blocks, threads, 0, st>>>(
+    fused_kernel<4, float><<<blocks, threads, 0, st>>>(
         gs, gp, a0, b0, astore, bstore, out, n, t_train, l_win, nof_b, nof_w);
   else
-    fused_kernel<2, float, false><<<blocks, threads, 0, st>>>(
+    fused_kernel<2, float><<<blocks, threads, 0, st>>>(
         gs, gp, a0, b0, astore, bstore, out, n, t_train, l_win, nof_b, nof_w);
-  return (int)cudaGetLastError();
-}
-
-// v9 (map_windowed_pallas_v9): radix 2, bf16 gammas, metrics and stores,
-// normalised after every training pair; the LLRs are bf16 values written as
-// f32.  astore, bstore (L/4, 8, N) bf16.
-extern "C" int turbo_map_fused16(const float* gs, const float* gp,
-                                 const float* a0, const float* b0,
-                                 __nv_bfloat16* astore, __nv_bfloat16* bstore,
-                                 float* out, int n, int t_train, int l_win,
-                                 int nof_b, int nof_w, void* stream) {
-  if (n <= 0 || l_win <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  fused_kernel<2, __nv_bfloat16, true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      gs, gp, a0, b0, astore, bstore, out, n, t_train, l_win, nof_b, nof_w);
   return (int)cudaGetLastError();
 }

@@ -16,8 +16,10 @@ same arithmetic:
 - ``map_fused`` (``csrc/turbo_fused.cu``): alpha and beta interleaved, LLRs
   emitted against half-depth stores, for ``map_windowed_pallas_v7`` (radix
   2) and its ``radix4=True`` form v8 (radix 4).
-- ``map_fused16`` (same file): v7's radix-2 dataflow at bf16 with
-  normalisation in training, ``map_windowed_pallas_v9`` (the default).
+- ``map_fused16`` (``csrc/turbo_fused16.cu``): v7's radix-2 dataflow at
+  bf16 with normalisation in training, ``map_windowed_pallas_v9`` (the
+  default), its half-depth stores in shared memory and one thread per chain
+  (launch geometry from ``fused16_geometry``).
 - ``sweep`` (``csrc/turbo_sweep.cu``) then ``emit`` (``csrc/turbo_emit.cu``):
   the interleaved recursions storing the even-position metrics, then a fully
   parallel emission, for ``map_windowed_pallas_v5`` (radix 4) +
@@ -43,6 +45,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -354,12 +357,36 @@ def map_fused16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     if not _check_windowed("map_fused16", *args):
         return map_fused16_ref(*args)
     n = gs_ext.shape[1]
+    geo = fused16_geometry(n, l_win)
     out = gs_ext.new_empty((l_win, n))
-    astore = gs_ext.new_empty((l_win // 4, 8, n), dtype=torch.bfloat16)
-    bstore = gs_ext.new_empty((l_win // 4, 8, n), dtype=torch.bfloat16)
-    _launch("map_fused16", "turbo_fused", "turbo_map_fused16", 7, 5, gs_ext, gp_ext,
-            a_init, b_init, astore, bstore, out, n, t_train, l_win, nof_b, nof_w)
+    _launch("map_fused16", "turbo_fused16", "turbo_map_fused16", 5, 7, gs_ext, gp_ext,
+            a_init, b_init, out, n, t_train, l_win, nof_b, nof_w, geo.lanes,
+            geo.smem_bytes)
     return out
+
+
+FUSED16_TILE = 32   # kTile of csrc/turbo_fused16.cu: lanes per block
+FUSED16_STAGES = 8  # kStages of csrc/turbo_fused16.cu: the gamma ring's depth
+
+
+class Fused16Geometry(NamedTuple):
+    lanes: int       # lanes per tile (one block; threads = 2 * lanes)
+    threads: int
+    smem_bytes: int  # dynamic shared memory per block
+    grid: int        # blocks: ceil(N / lanes), the last one ragged
+
+
+def fused16_geometry(n: int, l_win: int) -> Fused16Geometry:
+    """``map_fused16``'s launch at N lanes and window L (L % 4 == 0):
+    FUSED16_TILE lanes a block; per lane 32·ceil(L/8) bytes of bf16 stores
+    (each chain stores every other of its L/4 phase-1 metrics, 8 bf16 each)
+    and 256 bytes of gamma ring (two chains, FUSED16_STAGES row pairs of 4
+    floats)."""
+    if l_win <= 0 or l_win % 4:
+        raise ValueError(f"map_fused16 needs L % 4 == 0, not L={l_win}")
+    per_lane = 32 * -(-l_win // 8) + 2 * FUSED16_STAGES * 4 * 4
+    return Fused16Geometry(FUSED16_TILE, 2 * FUSED16_TILE, FUSED16_TILE * per_lane,
+                           -(-n // FUSED16_TILE))
 
 
 # --- the split sweep / emission half-iteration (turbo_sweep/emit.cu) -------

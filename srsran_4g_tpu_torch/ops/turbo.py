@@ -301,6 +301,13 @@ def kernel_route(name: str, l: int, t: int) -> str:
     return name if name in ("v3", "bf16") else "v1"
 
 
+def window_length(k: int, window: int, train: int) -> int | None:
+    """The window ``turbo_decode`` runs at: the largest divisor of K that is
+    <= ``window`` and > ``train``, so awkward sizes still get a
+    parallel-window decode; None (the full recursion) if there is none."""
+    return next((l for l in range(min(window, k), train, -1) if k % l == 0), None)
+
+
 def _map_windowed(lsa, lp, tail_sys, tail_par, win_len: int, train_len: int):
     """One windowed max-log BCJR half-iteration over (B, K) code blocks →
     a-posteriori LLRs (B, K), in the dataflow ``TURBO_KERNEL`` names
@@ -380,11 +387,7 @@ def turbo_decode(
     ls_int = ls[:, perm]
 
     if window is not None:
-        # largest divisor of K that is <= the requested window and > train,
-        # so awkward sizes still get a parallel-window decode
-        window = next(
-            (l for l in range(min(window, k), train, -1) if k % l == 0), None
-        )
+        window = window_length(k, window, train)
 
     def half(lsa, lp, tsys, tpar):
         if window is None:

@@ -86,7 +86,11 @@ def test_sweep_and_emit_match_plain(cuda_device, b, k, l, t, radix):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16)])
+# also the small shape of chip_smoke.py, five tiles (N = 160), a ragged last
+# tile (N = 84), one window (W = 1) and L/4 odd (L = 188)
+@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16), (64, 512, 64, 16),
+                                     (5, 6144, 192, 32), (3, 5824, 208, 32), (3, 40, 40, 32),
+                                     (2, 6016, 188, 32)])
 def test_map_fused16_equals_plain(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
     before = turbo_map.launches["map_fused16"]

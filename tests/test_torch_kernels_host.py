@@ -2,9 +2,17 @@
 torch versions.
 
 Each ``srsran_4g_tpu_torch/csrc/*.cu`` is built with the host C++ compiler
-against a stand-in ``cuda_runtime.h`` that defines the CUDA keywords and a
-sequential launch (every block and thread in turn), after the ``<<<...>>>``
-launches are rewritten as calls to it.  The C entry points that the
+against a stand-in ``cuda_runtime.h`` that defines the CUDA keywords and two
+launches, after the ``<<<...>>>`` launches are rewritten as calls to them:
+a sequential one (every block and thread in turn) for sources without a
+barrier, and a block-cooperative one for sources that call
+``__syncthreads()``.  The cooperative launch runs a block's threads as
+coroutines (``ucontext``) on one OS thread, each until it reaches a barrier
+or ends; the barrier releases when every thread of the block waits at it,
+and a thread that ends while others wait fails the launch (an early exit
+before a barrier).  The block's dynamic shared memory (``extern
+__shared__``) is one buffer, filled with NaN bytes before each block, and
+``cuda_pipeline.h``'s asynchronous copies are synchronous ones.  The C entry points that the
 wrappers of ``ops/cuda/turbo_map.py`` and ``ops/cuda/probes.py`` call through ctypes then run on CPU
 buffers, so the kernels' indexing, schedules and arithmetic are checked
 here; only the card (tests/test_torch_cuda.py, chip_smoke.py) shows that
@@ -35,6 +43,7 @@ from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import probes
 from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 from srsran_4g_tpu_torch.ops.cuda.build import CSRC
+from srsran_4g_tpu_torch.tools import fused16_split
 
 torch.set_num_threads(2)
 
@@ -48,7 +57,13 @@ _CUDA_RUNTIME = r"""
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
+#define __shared__ static
+#include <ucontext.h>
+#include <vector>
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
@@ -56,9 +71,16 @@ struct dim3 {
 static dim3 gridDim, blockDim, blockIdx, threadIdx;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-static inline int cudaGetLastError() { return cudaSuccess; }
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 719 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+enum { cudaSharedmemCarveoutMaxShared = 100 };
+static int host_error = cudaSuccess;
+static inline int cudaGetLastError() {
+  const int err = host_error;
+  host_error = cudaSuccess;
+  return err;
+}
 template <class T>
 static inline int cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
 static inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
@@ -74,6 +96,82 @@ static void host_launch(dim3 grid, dim3 block, F kernel) {
         kernel();
       }
 }
+// The block-cooperative launch: the threads of a block as coroutines.
+static ucontext_t host_scheduler;
+static ucontext_t* host_threads = nullptr;  // null outside host_launch_block
+static unsigned char* host_waiting = nullptr;
+static unsigned host_current = 0;
+static void* host_smem = nullptr;
+static void (*host_body)(void*) = nullptr;
+static void* host_body_arg = nullptr;
+static inline void* host_shared() { return host_smem; }
+static inline void __syncwarp(unsigned = 0xffffffffu) {}  // compiled, never run
+static inline void __syncthreads() {
+  if (!host_threads) abort();  // a barrier under the sequential launch
+  host_waiting[host_current] = 1;
+  swapcontext(&host_threads[host_current], &host_scheduler);
+}
+static void host_thread_main() { host_body(host_body_arg); }
+template <class F>
+static void host_launch_block(dim3 grid, dim3 block, size_t smem, F kernel) {
+  const size_t stack = 1 << 16;
+  const unsigned nt = block.x;
+  std::vector<ucontext_t> ctx(nt);
+  std::vector<unsigned char> waiting(nt), done(nt), stacks(nt * stack);
+  std::vector<uint4> shared(smem / sizeof(uint4) + 1);
+  gridDim = grid;
+  blockDim = block;
+  host_body = [](void* k) { (*static_cast<F*>(k))(); };
+  host_body_arg = &kernel;
+  host_threads = ctx.data();
+  host_waiting = waiting.data();
+  host_smem = shared.data();
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      blockIdx = dim3(bx, by);
+      memset(shared.data(), 0xff, shared.size() * sizeof(uint4));
+      for (unsigned t = 0; t < nt; ++t) {
+        getcontext(&ctx[t]);
+        ctx[t].uc_stack.ss_sp = &stacks[t * stack];
+        ctx[t].uc_stack.ss_size = stack;
+        ctx[t].uc_link = &host_scheduler;
+        makecontext(&ctx[t], host_thread_main, 0);
+        done[t] = 0;
+      }
+      for (;;) {  // one pass: every live thread to its next barrier or its end
+        unsigned n_wait = 0, n_done = 0;
+        for (unsigned t = 0; t < nt; ++t) {
+          if (done[t]) continue;
+          waiting[t] = 0;
+          host_current = t;
+          threadIdx = dim3(t);
+          swapcontext(&host_scheduler, &ctx[t]);
+          if (waiting[t]) ++n_wait; else done[t] = 1;
+        }
+        for (unsigned t = 0; t < nt; ++t) n_done += done[t];
+        if (!n_wait) break;
+        if (n_done) {  // ended threads would leave the others at the barrier
+          host_error = cudaErrorLaunchFailure;
+          host_threads = nullptr;
+          return;
+        }
+      }
+    }
+  host_threads = nullptr;
+}
+"""
+
+_CUDA_PIPELINE = r"""
+#pragma once
+#include <stddef.h>
+#include <string.h>
+static inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
+                                           size_t zfill = 0) {
+  (void)zfill;
+  memcpy(dst, src, size);
+}
+static inline void __pipeline_commit() {}
+static inline void __pipeline_wait_prior(size_t) {}
 """
 
 _CUDA_BF16 = r"""
@@ -96,6 +194,10 @@ static inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);  // round to nearest even (finite values)
   return __nv_bfloat16{(uint16_t)(u >> 16)};
 }
+static inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
+static inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short x) {
+  return __nv_bfloat16{x};
+}
 static inline __nv_bfloat16 __hadd(__nv_bfloat16 a, __nv_bfloat16 b) {
   return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
 }
@@ -116,6 +218,15 @@ static inline __nv_bfloat16 __high2bfloat16(__nv_bfloat162 v) { return v.y; }
 static inline __nv_bfloat162 __bfloat162bfloat162(__nv_bfloat16 a) {
   return __nv_bfloat162{a, a};
 }
+static inline __nv_bfloat162 __low2bfloat162(__nv_bfloat162 v) { return {v.x, v.x}; }
+static inline __nv_bfloat162 __high2bfloat162(__nv_bfloat162 v) { return {v.y, v.y}; }
+static inline __nv_bfloat162 __lowhigh2highlow(__nv_bfloat162 v) { return {v.y, v.x}; }
+static inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+static inline __nv_bfloat162 __float2bfloat162_rn(float a) {
+  return __floats2bfloat162_rn(a, a);
+}
 static inline __nv_bfloat162 __hadd2(__nv_bfloat162 a, __nv_bfloat162 b) {
   return __nv_bfloat162{__hadd(a.x, b.x), __hadd(a.y, b.y)};
 }
@@ -127,15 +238,20 @@ static inline __nv_bfloat162 __hmax2(__nv_bfloat162 a, __nv_bfloat162 b) {
 }
 """
 
-# kernel<<<grid, block, smem, stream>>>(args);  ->  host_launch(grid, block, [&] { kernel(args); });
+# kernel<<<grid, block, smem, stream>>>(args);  ->
+#   host_launch(grid, block, [&] { kernel(args); });  or, with a barrier,
+#   host_launch_block(grid, block, smem, [&] { kernel(args); });
 _LAUNCH = re.compile(
-    r"([\w:]+(?:<[^<>;]*>)?)<<<\s*([^,]+?)\s*,\s*([^,]+?)\s*,[^>]*>>>\s*\(([^;]*)\);", re.S)
+    r"([\w:]+(?:<[^<>;]*>)?)<<<\s*([^,]+?)\s*,\s*([^,]+?)\s*,\s*([^,]+?)\s*,[^>]*>>>"
+    r"\s*\(([^;]*)\);", re.S)
+# extern __shared__ T name[];  ->  T* name = static_cast<T*>(host_shared());
+_EXTERN_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 # C entry -> (source, pointer args, int args), as ops/cuda/turbo_map.py binds them
 _ENTRIES = {"turbo_map_windowed": ("turbo_map", 6, 5),
             "turbo_map_windowed16": ("turbo_map", 6, 5),
             "turbo_map_fused": ("turbo_fused", 7, 6),
-            "turbo_map_fused16": ("turbo_fused", 7, 5),
+            "turbo_map_fused16": ("turbo_fused16", 5, 7),
             "turbo_sweep": ("turbo_sweep", 6, 6),
             "turbo_emit": ("turbo_emit", 5, 2),
             "turbo_map_v3": ("turbo_v3", 6, 5),
@@ -148,30 +264,48 @@ _ENTRIES = {"turbo_map_windowed": ("turbo_map", 6, 5),
             "probe_empty": ("probe_launch", 3, 3)}
 
 
-@pytest.fixture(scope="module")
-def host_kernels(tmp_path_factory):
-    """The C entry of every kernel source, built for the host."""
+def _host_dir(out):
+    """The stand-in CUDA headers and the package's shared headers in
+    ``out``; returns the host C++ compiler (skips without one)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    out = tmp_path_factory.mktemp("host_kernels")
     (out / "cuda_runtime.h").write_text(_CUDA_RUNTIME)
     (out / "cuda_bf16.h").write_text(_CUDA_BF16)
+    (out / "cuda_pipeline.h").write_text(_CUDA_PIPELINE)
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, out / header.name)
-    procs = {}
-    for name in {source for source, _, _ in _ENTRIES.values()}:
-        src = (CSRC / f"{name}.cu").read_text()
-        src, n_launch = _LAUNCH.subn(r"host_launch(\2, \3, [&] { \1(\4); });", src)
-        assert n_launch, f"{name}.cu: no kernel launch found"
-        (out / f"{name}.cpp").write_text(src)
-        cmd = [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-               "-I", str(out), "-o", str(out / f"lib{name}.so"), str(out / f"{name}.cpp")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
+    return cxx
+
+
+def _host_build(cxx, out, name, lib, flags=()):
+    """Start the host build of ``csrc/<name>.cu`` (its launches rewritten)
+    into ``out / lib``; returns the compiler's process."""
+    src = (CSRC / f"{name}.cu").read_text()
+    launch = (r"host_launch_block(\2, \3, \4, [&] { \1(\5); });"
+              if "__syncthreads" in src else r"host_launch(\2, \3, [&] { \1(\5); });")
+    src = _EXTERN_SHARED.sub(r"\1* \2 = static_cast<\1*>(host_shared());", src)
+    src, n_launch = _LAUNCH.subn(launch, src)
+    assert n_launch, f"{name}.cu: no kernel launch found"
+    (out / f"{lib}.cpp").write_text(src)
+    cmd = [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", *flags,
+           "-I", str(out), "-o", str(out / f"lib{lib}.so"), str(out / f"{lib}.cpp")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(procs):
     for name, proc in procs.items():
         log, _ = proc.communicate()
-        assert proc.returncode == 0, f"{name}.cu does not build for the host:\n{log}"
+        assert proc.returncode == 0, f"{name} does not build for the host:\n{log}"
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """The C entry of every kernel source, built for the host."""
+    out = tmp_path_factory.mktemp("host_kernels")
+    cxx = _host_dir(out)
+    _wait({name: _host_build(cxx, out, name, name)
+           for name in {source for source, _, _ in _ENTRIES.values()}})
     fns = {}
     for symbol, (name, n_ptr, n_int) in _ENTRIES.items():
         fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
@@ -255,13 +389,46 @@ def test_turbo_map16_source_matches_plain(host_kernels, b, k, l, t):
     _equal(out, tm.map_windowed16_ref(*args))
 
 
-@pytest.mark.parametrize("b,k,l,t", [SHAPES[0], (2, 512, 128, 32)])
+# five tiles of 32 lanes (N = 160), a ragged last tile (N = 84), one window
+# (W = 1), and L/4 odd (K = 6016, L = 188)
+@pytest.mark.parametrize("b,k,l,t", [SHAPES[0], (2, 512, 128, 32), (5, 6144, 192, 32),
+                                     (3, 5824, 208, 32), (3, 40, 40, 32), (2, 6016, 188, 32)])
 def test_turbo_fused16_source_matches_plain(host_kernels, b, k, l, t):
     args = _inputs(b, k, l, t)
     gs, n = args[0], args[0].shape[1]
+    geo = tm.fused16_geometry(n, l)
     out = gs.new_empty((l, n))
-    stores = [gs.new_empty((l // 4, 8, n), dtype=torch.bfloat16) for _ in range(2)]
-    _run(host_kernels["turbo_map_fused16"], *args[:4], *stores, out, n, t, l, b, k // l)
+    _run(host_kernels["turbo_map_fused16"], *args[:4], out, n, t, l, b, k // l, geo.lanes,
+         geo.smem_bytes)
+    _equal(out, tm.map_fused16_ref(*args))
+
+
+def test_fused16_split_variants_build_for_the_host(tmp_path):
+    """Every build-time variant of turbo_fused16.cu that tools/fused16_split
+    times still compiles (host build)."""
+    cxx = _host_dir(tmp_path)
+    _wait({name: _host_build(cxx, tmp_path, "turbo_fused16", name,
+                             fused16_split.variant_flags(name))
+           for name in fused16_split.VARIANTS})
+
+
+# the variants that change only where the dataflow keeps its values (ring
+# depth, stores, tile width) compute the kernel's function; coop_fill's warp
+# copies need the warp's threads in step, which the host launch does not
+# give, and the other two compute no LLRs
+@pytest.mark.parametrize("variant", ["ring2", "full_stores", "ring4_full_tile64"])
+def test_fused16_variants_match_plain_on_the_host(tmp_path, variant):
+    cxx = _host_dir(tmp_path)
+    _wait({variant: _host_build(cxx, tmp_path, "turbo_fused16", variant,
+                                fused16_split.variant_flags(variant))})
+    fn = getattr(ctypes.CDLL(str(tmp_path / f"lib{variant}.so")), "turbo_map_fused16")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, k, l, t = 3, 5824, 208, 32  # N = 84: a ragged last tile at 32 and 64 lanes
+    args = _inputs(b, k, l, t)
+    out = args[0].new_empty((l, args[0].shape[1]))
+    _run(fn, *args[:4], out, args[0].shape[1], t, l, b, k // l,
+         *fused16_split.variant_geometry(variant, l))
     _equal(out, tm.map_fused16_ref(*args))
 
 

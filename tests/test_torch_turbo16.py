@@ -30,6 +30,7 @@ import torch
 from srsran_4g_tpu.ops import turbo as jturbo
 from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+from srsran_4g_tpu_torch.utils import constants
 
 torch.set_num_threads(2)
 
@@ -134,3 +135,24 @@ def test_new_wrappers_check_their_inputs():
             fn(*args, T, L, B, K // L + 1)  # N != B*W
         with pytest.raises(TypeError):
             fn(args[0].double(), *args[1:], T, L, B, K // L)
+
+
+# map_fused16's launch at every code-block size that turbo_decode sends to the
+# v9 route (window 208, training 32; L % 4 == 0), for one block, a few, and the
+# 20 MHz bench batch (128 subframes of 13 code blocks)
+@pytest.mark.parametrize("nof_b", [1, 5, 1664])
+def test_fused16_geometry_covers_every_v9_block_size(nof_b):
+    v9 = [(k, l) for k in map(int, constants.cb_sizes())
+          if (l := turbo.window_length(k, 208, 32)) and turbo.kernel_route("v9", l, 32) == "v9"]
+    assert len(v9) == 167 and (5824, 208) in v9 and (40, 40) in v9
+    for k, l in v9:
+        n = nof_b * (k // l)
+        geo = tm.fused16_geometry(n, l)
+        # the 48 KB a block gets without opting in (the C entry does not opt
+        # in), so under the 232,448 B an H100 block may opt into as well
+        assert geo.smem_bytes <= 48 * 1024
+        assert geo.smem_bytes == geo.lanes * (32 * -(-l // 8) + 256)
+        assert geo.threads == 2 * geo.lanes <= 256 and geo.lanes % 32 == 0
+        tiles = [range(i * geo.lanes, min((i + 1) * geo.lanes, n)) for i in range(geo.grid)]
+        assert all(len(t) for t in tiles)  # no empty block
+        assert [lane for t in tiles for lane in t] == list(range(n))
