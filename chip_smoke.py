@@ -17,6 +17,11 @@ read just after:
   one, and the launch counters of its own kernels moving while the others
   stay at 0; v9 is also timed by stage, profiled, and swept over batch and
   SNR;
+- the default route at a block size whose window is L ≡ 2 (mod 4): 100 PRB,
+  64QAM, MCS 23 (TBS 51024, 9 code blocks of K=5696, L=178), which the
+  default TURBO_KERNEL decodes through ``map_windowed``; exact, only
+  ``map_windowed`` launched, its launches, kernel ms and the decode's device
+  time logged;
 - the TM4 2x2 dual-codeword lane (``models/pdsch_mimo``) at pmi 2, batch 64,
   30 dB through the fixed 2x2 channel of the JAX package's MIMO gate, both
   codewords checked the same way;
@@ -39,10 +44,12 @@ read just after:
   unpacks the grant and decodes the PDSCH it names, every field checked
   exactly on every capture.
 
-``map_fused16`` (the default route's kernel) is held exactly equal to its
-plain version (max |diff| 0), also at five tiles, a ragged last tile, one
-window and L/4 odd, and its launch geometry is logged beside its build's
-registers and spills.
+``map_fused16`` (the default route's kernel), ``map_windowed`` and
+``map_v3`` are held exactly equal to their plain versions (max |diff| 0),
+also at five tiles, a ragged last tile, one window, L/4 odd, L = 178, 512
+and 6144 (the full recursion at T = 0 for ``map_windowed`` and
+``map_v3``); each kernel's launch geometry is logged beside its build's
+registers and spills, and given in the kernels line.
 
 Output (stdout): the card's name and power limit, the build and check
 lines, per-path subframes/s (best of 3), a per-stage split, then one JSON
@@ -138,9 +145,9 @@ PHICH_AT = ((3, 1), (7, 5))  # (group, nseq)
 # the TPU kernel it replaces in srsran_4g_tpu/ops/pallas/turbo_map.py, and the
 # TURBO_KERNEL path whose decode gives its launches)
 ROUTES = {
-    "turbo_map": ("map_windowed", None, "turbo_map.cu", 272, "v4"),
+    "turbo_map": ("map_windowed", None, "turbo_windowed.cu", 272, "v4"),
     "map_windowed16": ("map_windowed16", None, "turbo_map.cu", 1323, "bf16"),
-    "map_v3": ("map_v3", None, "turbo_v3.cu", 1189, "v3"),
+    "map_v3": ("map_v3", None, "turbo_windowed.cu", 1189, "v3"),
     "map_fused16": ("map_fused16", None, "turbo_fused16.cu", 942, "v9"),
     "map_fused_r2": ("map_fused", 2, "turbo_fused.cu", 872, "v7"),
     "map_fused_r4": ("map_fused", 4, "turbo_fused.cu", 872, "v8"),
@@ -148,6 +155,10 @@ ROUTES = {
     "sweep_r4": ("sweep", 4, "turbo_sweep.cu", 426, "v5"),
     "emit": ("emit", None, "turbo_emit.cu", 1150, "v5"),
 }
+EXACT = ("turbo_map", "map_v3", "map_fused16")  # routes held to max |diff| 0
+# the default route at L ≡ 2 (mod 4): 100 PRB, MCS 23 (I_TBS 21, 64QAM), TBS
+# 51024, 9 code blocks of K = 5696, window L = 178
+MCS23_TBS, MCS23_K, MCS23_L = 51024, 5696, 178
 
 
 def log(msg: str) -> None:
@@ -242,8 +253,8 @@ def kernel_calls(args, route: str):
 
 def check_kernel(route: str, args, time_it=False) -> dict:
     """One route's kernel vs its plain version on the card, same inputs: f32
-    kernels to atol 1e-3, bf16 kernels to the 16-bit bars; map_v3 also
-    against turbo_map's LLRs."""
+    kernels to atol 1e-3, bf16 kernels to the 16-bit bars, and the routes of
+    EXACT to max |diff| 0; map_v3 also equal to turbo_map's LLRs."""
     from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
     from srsran_4g_tpu_torch.tools import event_ms, host_ms
 
@@ -261,18 +272,17 @@ def check_kernel(route: str, args, time_it=False) -> dict:
         if err > ATOL16 or mean >= MEAN16 or not torch.equal(got > 0, want > 0):
             raise AssertionError(f"{route} kernel vs plain at {desc}: max |diff| {err}, "
                                  f"mean {mean}, or a hard decision differs")
-        if route == "map_fused16" and err != 0:
-            raise AssertionError(f"map_fused16 kernel vs plain at {desc}: max |diff| "
-                                 f"{err}, not 0")
     elif err > ATOL:
         raise AssertionError(f"{route} kernel vs plain at {desc}: max |diff| {err} > {ATOL}")
+    if route in EXACT and err != 0:
+        raise AssertionError(f"{route} kernel vs plain at {desc}: max |diff| {err}, not 0")
     res = dict(max_abs_err=err)
     if route == "map_v3":
         res["vs_turbo_map"] = float((got - tm.map_windowed(*args)).abs().max())
         torch.cuda.synchronize()
-        if res["vs_turbo_map"] > ATOL:
+        if res["vs_turbo_map"] != 0:
             raise AssertionError(f"map_v3 vs turbo_map at {desc}: max |diff| "
-                                 f"{res['vs_turbo_map']} > {ATOL}")
+                                 f"{res['vs_turbo_map']}, not 0")
     if time_it:
         res["ms"] = event_ms(kernel, iters=20, warmup=2)
         res["plain_ms"] = host_ms(plain, iters=2)
@@ -283,10 +293,15 @@ def check_kernel(route: str, args, time_it=False) -> dict:
 
 
 def check_kernels(dev, gen, b, k) -> dict:
-    """Every route at the bench shape (timed) and at small shapes; the
-    largest |diff| of each route over its checks."""
+    """Every route at the bench shape (timed), map_windowed and map_v3 also
+    at the MCS 23 path's shape (timed, under ``out["mcs23"]``), and every
+    route at small shapes; the largest |diff| of each route over its
+    checks."""
     bench = gamma_inputs(dev, gen, b, k, 208, 32)
     out = {r: check_kernel(r, bench, time_it=True) for r in ROUTES}
+    mcs23 = gamma_inputs(dev, gen, BATCH * 9, MCS23_K, MCS23_L, 32)
+    out["mcs23"] = {r: check_kernel(r, mcs23, time_it=True) for r in ("turbo_map", "map_v3")}
+    del mcs23
     any_shape = ("turbo_map", "map_windowed16", "map_v3")  # the v1 bodies
     small = [((64, 424, 106, 32), any_shape + ("sweep_r2", "sweep_r4", "emit")),  # L ≡ 2 (mod 4)
              ((32, 512, 64, 31), any_shape),                                      # odd T
@@ -296,7 +311,10 @@ def check_kernels(dev, gen, b, k) -> dict:
              ((5, 6144, 192, 32), ("map_fused16",)),  # N = 160, W = 32
              ((3, 5824, 208, 32), ("map_fused16",)),  # N = 84: a ragged last tile
              ((3, 40, 40, 32), ("map_fused16",)),     # W = 1
-             ((2, 6016, 188, 32), ("map_fused16",))]  # L/4 odd
+             ((2, 6016, 188, 32), ("map_fused16",)),  # L/4 odd
+             ((32, 1024, 512, 32), ("turbo_map", "map_v3", "map_fused16")),  # L = 512
+             ((3, 6144, 6144, 0), ("turbo_map", "map_v3")),  # the full recursion at K = 6144
+             ((3, 6144, 6144, 32), ("map_fused16",))]  # L = K = 6144, W = 1
     for shape, names in small:
         args = gamma_inputs(dev, gen, *shape)
         for r in names:
@@ -304,7 +322,23 @@ def check_kernels(dev, gen, b, k) -> dict:
             for key in ("max_abs_err", "vs_turbo_map"):
                 if key in res:
                     out[r][key] = max(out[r][key], res[key])
+    for r, res in out["mcs23"].items():
+        out[r]["max_abs_err"] = max(out[r]["max_abs_err"], res["max_abs_err"])
     return out
+
+
+def kernel_symbol(route: str, radix, geo) -> str:
+    """A piece of the mangled name of the kernel that ``route`` launches at
+    the bench shape (``geo``: its geometry), to find it in the build log."""
+    if route in ("turbo_map", "map_v3"):
+        return f"{'windowed' if route == 'turbo_map' else 'v3'}_kernelILi{geo.every}E"
+    if route == "map_fused16":
+        return f"fused16_kernelILi{geo.lanes}E"
+    if route == "map_windowed16":
+        return "map_windowed_kernel"
+    if route == "emit":
+        return "emit_kernel"
+    return f"{ROUTES[route][0].split('_')[-1]}_kernelILi{radix}E"
 
 
 def launch_counts(names=WRAPPERS) -> dict[str, int]:
@@ -388,10 +422,12 @@ def staged_decode(cfg, rx):
 
 
 def profile_decode(cfg, rx, decode_s: float, card: str, reps: int = 3,
-                   decode=None) -> None:
+                   decode=None, turbo: str = "fused") -> tuple[float, float] | None:
     """Device busy/idle share of the decode and its costliest kernels, from
     torch.profiler over `reps` decodes against the unprofiled best time, and
-    the share of the turbo kernels (named *fused*, as the v9 route's is)."""
+    the share of the turbo kernels (named *fused*, as the v9 route's is, or
+    *<turbo>*).  Returns (device ms, turbo kernels' ms) per decode, None if
+    the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -406,16 +442,17 @@ def profile_decode(cfg, rx, decode_s: float, card: str, reps: int = 3,
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     if busy_ms <= 0:
         log(f"[{card}] profiler saw no device time: idle share not measured")
-        return
+        return None
     n_kernels = sum(e.count for e in kernels) / reps
-    turbo_ms = sum(e.self_device_time_total for e in kernels if "fused" in e.key) / 1e3 / reps
+    turbo_ms = sum(e.self_device_time_total for e in kernels if turbo in e.key) / 1e3 / reps
     log(f"[{card}] decode device time {busy_ms:.3f} ms in {n_kernels:.0f} kernels "
         f"per decode; idle share {1 - busy_ms / (decode_s * 1e3):.3f} of the "
-        f"unprofiled {decode_s * 1e3:.2f} ms; kernels named *fused* {turbo_ms:.4f} ms "
+        f"unprofiled {decode_s * 1e3:.2f} ms; kernels named *{turbo}* {turbo_ms:.4f} ms "
         f"({turbo_ms / busy_ms:.3f} of the device time)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<4d} "
             f"{e.key[:90]}")
+    return busy_ms, turbo_ms
 
 
 def check_exact(ok: torch.Tensor, got: torch.Tensor, sent: torch.Tensor, what: str) -> None:
@@ -496,6 +533,66 @@ def mimo_lane(dev, gen, card: str) -> dict[str, int]:
         f"{MIMO_BATCH / min(times):.1f} subframes/s")
     profile_decode(mcfg, rx, min(times), card, decode=pdsch_mimo.decode)
     return counts
+
+
+def mcs23_path(dev, gen, card: str, kern: dict) -> dict:
+    """The default route at L ≡ 2 (mod 4): 100 PRB, 64QAM, MCS 23 (TBS 51024:
+    9 code blocks of K = 5696, window L = 178), BATCH subframes at SNR_DB,
+    decoded under the default TURBO_KERNEL, which turns v9 into v4 at this L
+    and runs ``map_windowed``.  With the counts at 0: exact, and only
+    ``map_windowed`` launched.  Logs its launches, kernel ms (``kern``, the
+    MCS 23 shape timed in check_kernels) and the decode's host and device
+    time.  Returns the default_route entry of turbo_map's kernels line."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import grid, pdsch
+    from srsran_4g_tpu_torch.ops import turbo
+
+    os.environ.pop("TURBO_KERNEL", None)
+    cfg = pdsch.PdschConfig(cell=grid.CellConfig(nof_prb=100, cell_id=123, cfi=1),
+                            rnti=0x1234, subframe=4, mod="64qam", tbs=MCS23_TBS)
+    grp = cfg.plan.groups[0]
+    l_win = turbo.window_length(grp.K, 208, 32)
+    if ((len(cfg.plan.groups), grp.count, grp.K, l_win) != (1, 9, MCS23_K, MCS23_L)
+            or turbo.kernel_route("v9", l_win, 32) != "v4"):
+        raise AssertionError(f"MCS 23: segmentation {cfg.plan}, window {l_win}: not 9 CBs "
+                             f"of K={MCS23_K} at L={MCS23_L} on the v4 route")
+    bits = torch.randint(0, 2, (BATCH, cfg.tbs), generator=gen, device=dev,
+                         dtype=torch.int8)
+    rx = awgn.awgn(pdsch.add_crs(cfg, pdsch.encode(cfg, bits)),
+                   awgn.snr_to_noise_var(SNR_DB), generator=gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = pdsch.decode(cfg, rx, n_iter=N_ITER)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_exact(out["crc_ok"], out["bits"], bits, "MCS 23 default route")
+    moved = {name for name, n in counts.items() if n}
+    if moved != {"map_windowed"}:
+        raise AssertionError(f"the MCS 23 default route launched {counts}, expected only "
+                             f"map_windowed")
+    times, _, out = timed_decodes(cfg, rx, PATH_REPS)
+    check_exact(out["crc_ok"], out["bits"], bits, "MCS 23 default route (timed)")
+    b = BATCH * grp.count
+    nbytes, adds, maxes = work("map_windowed", b, MCS23_K, MCS23_L, 32)
+    bound_ms, bound_by = bound(nbytes, adds, maxes, "f32")
+    ms = kern["mcs23"]["turbo_map"]["ms"]
+    log(f"MCS 23 default route: 100 PRB 64QAM TBS {cfg.tbs}, {grp.count} CBs of K={grp.K}, "
+        f"L={l_win} (N={b * (grp.K // l_win)}), batch {BATCH}, {SNR_DB} dB: crc_ok "
+        f"{int(out['crc_ok'].sum())}/{BATCH}, bits equal, launches {counts}")
+    log(f"[{card}] MCS 23 default route: decode best of {PATH_REPS} "
+        f"{min(times) * 1e3:.2f} ms ({', '.join(f'{t * 1e3:.2f}' for t in times)}) = "
+        f"{BATCH / min(times):.1f} subframes/s; map_windowed {counts['map_windowed']} x "
+        f"{ms:.4f} ms (map_v3 at this shape {kern['mcs23']['map_v3']['ms']:.4f} ms), bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    prof = profile_decode(cfg, rx, min(times), card, turbo="windowed_kernel")
+    return dict(path="pdsch.decode, 100 PRB 64QAM MCS 23 (TBS 51024), default TURBO_KERNEL",
+                shapes=dict(blocks=b, K=MCS23_K, L=MCS23_L, T=32,
+                            lanes=b * (MCS23_K // MCS23_L)),
+                launches=counts["map_windowed"], ms=ms,
+                plain_ms=kern["mcs23"]["turbo_map"]["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, decode_ms=min(times) * 1e3,
+                decode_device_ms=prof[0] if prof else None,
+                map_windowed_device_ms=prof[1] if prof else None)
 
 
 def impair(dev, gen, sf: torch.Tensor, cfo_max: float, symbol_sz: int):
@@ -1002,9 +1099,17 @@ def main() -> None:
     grp = cfg.plan.groups[0]
     if (len(cfg.plan.groups), grp.count, grp.K) != (1, 13, 5824):
         raise AssertionError(f"unexpected segmentation {cfg.plan}")
-    geo = tm.fused16_geometry(BATCH * grp.count * (grp.K // 208), 208)
-    log(f"map_fused16 at the bench shape: {geo.lanes} lanes, {geo.threads} threads and "
-        f"{geo.smem_bytes} B of dynamic shared memory a block, grid {geo.grid}")
+    n_bench = BATCH * grp.count * (grp.K // 208)
+    geos = {"map_fused16": tm.fused16_geometry(n_bench, 208),
+            "turbo_map": tm.windowed_geometry(n_bench, 208, 32, 1),
+            "map_v3": tm.windowed_geometry(n_bench, 208, 32, 2)}
+    for route, geo in geos.items():
+        log(f"{route} at the bench shape: {geo}")
+    usage = {route: build.kernel_usage(libs[source[:-3]].with_suffix(".log").read_text(),
+                                       kernel_symbol(route, radix, geos.get(route)))
+             for route, (_, radix, source, _, _) in ROUTES.items()}
+    for route, u in usage.items():
+        log(f"{route} kernel at the bench shape: {u}")
     kern = check_kernels(dev, gen, BATCH * grp.count, grp.K)
 
     # ---- the main path: encode → CRS → AWGN → decode ----------------------
@@ -1050,6 +1155,7 @@ def main() -> None:
             paths[kernel] = drive_path(cfg, rx, bits, kernel)
     time_paths(cfg, rx, bits, card)
     mimo_lane(dev, gen, card)
+    default_route = mcs23_path(dev, gen, card, kern)
     dl_path(dev, gen, card)
     probe_kernels = probes_phase(card)
     control_path(dev, gen, card)
@@ -1071,8 +1177,11 @@ def main() -> None:
             launches=paths[path][wrapper], max_abs_err=kern[route]["max_abs_err"],
             ms=kern[route]["ms"], plain_ms=kern[route]["plain_ms"], bound_ms=bound_ms,
             bound_by=bound_by, bytes=nbytes, library_ms=None,
+            geometry=geos[route]._asdict() if route in geos else dict(threads=128, smem_bytes=0),
+            **usage[route],
             **({"vs_turbo_map_max_abs_err": kern[route]["vs_turbo_map"]}
-               if "vs_turbo_map" in kern[route] else {})))
+               if "vs_turbo_map" in kern[route] else {}),
+            **({"default_route": default_route} if route == "turbo_map" else {})))
     print(json.dumps({"kernels": kernels + probe_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

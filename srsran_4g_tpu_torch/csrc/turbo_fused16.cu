@@ -68,14 +68,16 @@
 // - Stores are [pair][lane] of 16 bytes: a warp's store or load is 512
 //   contiguous bytes, free of bank conflicts.
 // - The host (ops/cuda/turbo_map.fused16_geometry) passes the tile and the
-//   dynamic shared-memory bytes, 32 * (32*ceil(L/8) + 256): the stores and
-//   the ring, 34,816 B at L = 208, under the 48 KB a block gets without
-//   opting in.
+//   dynamic shared-memory bytes, tile * (32*ceil(L/8) + 256): the stores and
+//   the ring, 34,816 B at L = 208 and 32 lanes.  The tile is 32 lanes up to
+//   L = 1,752, then 16 (to L = 3,568), then 8 (to L = 7,200; the full
+//   K = 6,144 takes 198,656 B), so that a block fits the 232,448 B an H100
+//   block may opt into; the entry opts into the bytes it is given.
 //
 // Build-time variants, for tools/fused16_split.py only (the defaults are the
-// kernel): FUSED16_TILE lanes a block, FUSED16_STAGES ring slots,
-// FUSED16_EVERY = 1 to store every phase-1 metric, FUSED16_OPT_IN to opt into
-// more than 48 KB of shared memory; FUSED16_LOADS_ONLY (one bf16 add a step
+// kernel): FUSED16_TILE, a further tile the entry takes (lanes a block),
+// FUSED16_STAGES ring slots, FUSED16_EVERY = 1 to store every phase-1
+// metric; FUSED16_LOADS_ONLY (one bf16 add a step
 // in place of the trellis arithmetic and the emission), FUSED16_COMPUTE_ONLY
 // (the ring never filled) and FUSED16_COOP_FILL (each warp fills its ring
 // slot with one 16-byte cp.async a thread; needs N % 4 == 0 and no ragged
@@ -94,17 +96,12 @@ using namespace trellis;
 using M = __nv_bfloat16;
 using V = __nv_bfloat162;  // two metrics, or two branch terms
 
-#ifndef FUSED16_TILE
-#define FUSED16_TILE 32
-#endif
 #ifndef FUSED16_STAGES
 #define FUSED16_STAGES 8
 #endif
 #ifndef FUSED16_EVERY
 #define FUSED16_EVERY 2
 #endif
-constexpr int kTile = FUSED16_TILE;       // lanes per block
-constexpr int kThreads = 2 * kTile;       // one per chain
 constexpr int kStages = FUSED16_STAGES;   // gamma row pairs in flight per thread
 constexpr int kEvery = FUSED16_EVERY;     // phase-1 metrics per store
 static_assert(kEvery == 1 || kEvery == 2, "a store is read at most one pair ahead");
@@ -255,6 +252,7 @@ __device__ __forceinline__ void copy4(const V src[4], V dst[4]) {
 // shared-memory read overlaps step k's arithmetic; next(), after that
 // arithmetic, refills step k's slot with step k+kStages and moves on.  A slot
 // is refilled only after the step that read it has used its values.
+template <int kThreads>  // the block's threads: one per chain
 struct GammaRing {
   const float* gs;  // this lane's column
   const float* gp;
@@ -343,8 +341,8 @@ __device__ __forceinline__ void advance(V x[4], const Terms& g0,
 // Training (steps [0, T/2), frozen unless `trains`, normalised every pair)
 // and phase 1 (the next L/4 steps j; at even j the metric it starts from is
 // stored at own[(j/2) * kTile]).
-template <bool BETA>
-__device__ __forceinline__ void phase1(V x[4], GammaRing& ring, uint4* own,
+template <bool BETA, int kTile>
+__device__ __forceinline__ void phase1(V x[4], GammaRing<2 * kTile>& ring, uint4* own,
                                        bool trains, int t2, int h) {
   for (int i = 0; i < t2; ++i) {
     const Pair g = ring.cur;
@@ -372,8 +370,8 @@ __device__ __forceinline__ void phase1(V x[4], GammaRing& ring, uint4* own,
 // bf16 operations on the same values, so the same metric.  Alpha
 // (a = alpha(2j)) emits 2j and 2j+1 against beta(2j+2); beta
 // (b = beta(e+2), e = L-2j-2) emits e and e+1 against alpha(e).
-template <bool BETA>
-__device__ __forceinline__ void phase2(V x[4], GammaRing& ring,
+template <bool BETA, int kTile>
+__device__ __forceinline__ void phase2(V x[4], GammaRing<2 * kTile>& ring,
                                        const uint4* other, float* outl,
                                        size_t ns, int l2, int l_win) {
   for (int j = l2 / 2; j < l2; ++j) {
@@ -413,7 +411,9 @@ __device__ __forceinline__ void phase2(V x[4], GammaRing& ring,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A block: kTile lanes (32, 16 or 8), 2*kTile threads.
+template <int kTile>
+__global__ void __launch_bounds__(2 * kTile)
 fused16_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
                const float* __restrict__ a0, const float* __restrict__ b0,
                float* __restrict__ out, int n, int t_train, int l_win,
@@ -428,7 +428,7 @@ fused16_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
   // [alpha stores | beta stores | gamma ring]
   uint4* astore = smem + p;
   uint4* bstore = astore + (size_t)hs * kTile;
-  GammaRing ring{gs + lane, gp + lane,
+  GammaRing<2 * kTile> ring{gs + lane, gp + lane,
                  reinterpret_cast<float*>(smem + (size_t)2 * hs * kTile) + threadIdx.x,
                  ns, beta ? l_win + 2 * t_train - 2 : 0, beta ? -2 : 2, t2 + l2};
 
@@ -442,38 +442,79 @@ fused16_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
     }
     ring.start();
     if (beta)
-      phase1<true>(x, ring, bstore, lane < (nof_w - 1) * nof_b, t2, h);
+      phase1<true, kTile>(x, ring, bstore, lane < (nof_w - 1) * nof_b, t2, h);
     else
-      phase1<false>(x, ring, astore, lane >= nof_b, t2, h);
+      phase1<false, kTile>(x, ring, astore, lane >= nof_b, t2, h);
   }
   __syncthreads();  // every store of phase 1 is written
   if (live) {
     if (beta)
-      phase2<true>(x, ring, astore, out + lane, ns, l2, l_win);
+      phase2<true, kTile>(x, ring, astore, out + lane, ns, l2, l_win);
     else
-      phase2<false>(x, ring, bstore, out + lane, ns, l2, l_win);
+      phase2<false, kTile>(x, ring, bstore, out + lane, ns, l2, l_win);
   }
+}
+
+constexpr int kMaxSmem = 232448;  // an H100 block's opt-in limit
+
+#if defined(FUSED16_TILE) && FUSED16_TILE != 32 && FUSED16_TILE != 16 && FUSED16_TILE != 8
+#define FUSED16_EXTRA_TILE FUSED16_TILE
+#endif
+
+// Bytes of shared memory a block of `tile` lanes needs at window L (L % 4 ==
+// 0), or -1 for a tile the entry does not take.
+long long smem_need(int l_win, int tile) {
+  const bool ok = tile == 32 || tile == 16 || tile == 8
+#ifdef FUSED16_EXTRA_TILE
+                  || tile == FUSED16_EXTRA_TILE
+#endif
+      ;
+  if (!ok || l_win <= 0 || l_win % 4) return -1;
+  return (long long)tile * (2 * ((l_win / 4 + kEvery - 1) / kEvery) * sizeof(uint4) +
+                            2 * kStages * 4 * sizeof(float));
+}
+
+template <int kTile>
+int launch(const float* gs, const float* gp, const float* a0, const float* b0, float* out,
+           int n, int t_train, int l_win, int nof_b, int nof_w, int smem, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused16_kernel<kTile>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused16_kernel<kTile><<<(n + kTile - 1) / kTile, 2 * kTile, smem, (cudaStream_t)stream>>>(
+      gs, gp, a0, b0, out, n, t_train, l_win, nof_b, nof_w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// tile: lanes per block (kTile); smem: the block's dynamic shared memory, at
-// least kTile * (2*16*ceil(L/4 / kEvery) + 2*16*kStages) bytes.
+// tile: lanes per block (32, 16 or 8); smem: the block's dynamic shared
+// memory, at least turbo_fused16_smem's and at most 232,448 B.  The
+// arguments are checked also at n = 0, so a caller can ask whether a
+// geometry is taken.
 extern "C" int turbo_map_fused16(const float* gs, const float* gp,
                                  const float* a0, const float* b0, float* out,
                                  int n, int t_train, int l_win, int nof_b,
                                  int nof_w, int tile, int smem, void* stream) {
-  if (n <= 0 || l_win <= 0) return 0;
-  const size_t need = (size_t)kTile * (2 * ((l_win / 4 + kEvery - 1) / kEvery) * sizeof(uint4) +
-                                       2 * kStages * 4 * sizeof(float));
-  if (tile != kTile || l_win % 4 || t_train % 2 || smem < 0 || (size_t)smem < need)
+  const long long need = smem_need(l_win, tile);
+  if (need < 0 || n < 0 || t_train < 0 || t_train % 2 || smem < need || smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-#ifdef FUSED16_OPT_IN
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  switch (tile) {
+#ifdef FUSED16_EXTRA_TILE
+    case FUSED16_EXTRA_TILE:
+      return launch<FUSED16_EXTRA_TILE>(gs, gp, a0, b0, out, n, t_train, l_win, nof_b, nof_w,
+                                        smem, stream);
 #endif
-  fused16_kernel<<<(n + kTile - 1) / kTile, kThreads, smem, (cudaStream_t)stream>>>(
-      gs, gp, a0, b0, out, n, t_train, l_win, nof_b, nof_w);
-  return (int)cudaGetLastError();
+    case 32:
+      return launch<32>(gs, gp, a0, b0, out, n, t_train, l_win, nof_b, nof_w, smem, stream);
+    case 16:
+      return launch<16>(gs, gp, a0, b0, out, n, t_train, l_win, nof_b, nof_w, smem, stream);
+    default:
+      return launch<8>(gs, gp, a0, b0, out, n, t_train, l_win, nof_b, nof_w, smem, stream);
+  }
+}
+
+// The bytes of shared memory turbo_map_fused16 needs for a block, or -1.
+extern "C" long long turbo_fused16_smem(int l_win, int tile) {
+  return smem_need(l_win, tile);
 }

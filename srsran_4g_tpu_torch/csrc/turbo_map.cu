@@ -1,49 +1,44 @@
 // One windowed max-log-MAP (BCJR) half-iteration of the LTE 8-state RSC
-// turbo constituent code, single chain per lane, for NVIDIA Hopper (sm_90a).
+// turbo constituent code with bf16 metrics, single chain per lane, for NVIDIA
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernels map_windowed_pallas_r4
-// (srsran_4g_tpu/ops/pallas/turbo_map.py:272, body _make_kernel_v4) and the
-// bodies of map_windowed_pallas (:1423): f32 _make_kernel (:1323) as
-// turbo_map_windowed, and its 16-bit form _make_kernel(dtype=bf16), which
-// TURBO_KERNEL=bf16 selects (:1464-1471), as turbo_map_windowed16.  The f32
-// kernel takes any window L and training length T, so it also covers the
-// odd-L/T shapes of every route and, at L = K, T = 0, one window, the exact
-// full-length recursion.
+// Replaces the 16-bit body of the TPU kernel map_windowed_pallas
+// (srsran_4g_tpu/ops/pallas/turbo_map.py:1423, _make_kernel(dtype=bf16)
+// :1323), which TURBO_KERNEL=bf16 selects (:1464-1471), as
+// turbo_map_windowed16.  Any window L and training length T.  The f32 body
+// of the same entry, map_windowed_pallas_r4 and _make_kernel_v3 moved to
+// turbo_windowed.cu (map_windowed, map_v3); this kernel keeps the first
+// design until its own redesign.
 //
-// Contract (the Pallas entries' own, prepared by ops/turbo.py):
+// Contract (the Pallas entry's own, prepared by ops/turbo.py):
 //   gs, gp   (L+2T, N) f32  gamma rows; row r of lane w*B+b is trellis index
 //                           w*L - T + r (clamped) of block b
 //   a0, b0   (8, N)    f32  initial alpha / beta metrics
-//   astore   (L, 8, N) M    scratch for the body alphas (f32 or bf16)
-//   out      (L, N)    f32  a-posteriori LLRs
+//   astore   (L, 8, N) bf16 scratch for the body alphas
+//   out      (L, N)    f32  a-posteriori LLRs (bf16 values)
 // Alpha trains on rows [0, T), frozen on window-0 lanes (lane < B); beta
 // trains on rows L+2T-1 down to L+T, frozen on last-window lanes
-// (lane >= (W-1)*B); both bodies cover rows [T, T+L).  The Pallas entry
-// reads beta's rows from a second, reversed stream and the freezes from row
-// masks; for L > T those give every lane the same numbers as this layout.
+// (lane >= (W-1)*B); both bodies cover rows [T, T+L).
 //
 // Design: one thread per lane, the 8 alpha and 8 beta metrics in registers.
 // Alpha runs forward through training and body and writes every body alpha
 // to astore, laid out [pos][state][lane] so a warp's stores coalesce; beta
 // then runs backward and emits each LLR against the stored alpha.  Metrics
-// are renormalised to their max every step.  f32: in the order of additions
-// of the plain version (ops/cuda/turbo_map.py map_windowed_ref), held to
-// atol 1e-3.  bf16: gammas and initial metrics rounded to bf16, every
-// add/subtract rounded, the alpha store in bf16, the LLR added as (a + b) +
-// p*gp, then (m1 + gs) - m0, in bf16: the TPU kernel's own operations, so it
-// matches map_windowed16_ref and the Pallas body exactly.
+// are renormalised to their max every step.  Gammas and initial metrics
+// rounded to bf16, every add/subtract rounded, the alpha store in bf16, the
+// LLR added as (a + b) + p*gp, then (m1 + gs) - m0, in bf16: the TPU
+// kernel's own operations, so it matches map_windowed16_ref and the Pallas
+// body exactly.
 //
 // What bounds it on the H100: the function must read 2*(L+2T)*N*4 B of
 // gamma and write L*N*4 B of LLRs (about 143 MB at the 20 MHz bench shape,
 // N = 46,592 lanes, L = 208, T = 32), against about 39 operations per
 // trellis step per chain and 40 per emitted LLR, so the bytes bound it
-// (chip_smoke.py prints both bounds).  This first design adds the astore
-// round trip, 2*L*8*N*4 B (620 MB at the bench shape; half that in bf16)
-// through device memory, and one dependent chain of ~T+L steps per thread;
-// each step's gamma (and in the backward pass the stored alpha) is loaded
-// one step ahead so the load latency overlaps the previous step's
-// arithmetic.  turbo_v3.cu runs the same f32 arithmetic as two chains per
-// thread; turbo_fused.cu is the interleaved two-chain dataflow of v7/v8/v9.
+// (chip_smoke.py prints both bounds).  This design adds the astore round
+// trip, 2*L*8*N*2 B (310 MB at the bench shape) through device memory, and
+// one dependent chain of ~2(T+L) steps per thread; each step's gamma (and in
+// the backward pass the stored alpha) is loaded one step ahead so the load
+// latency overlaps the previous step's arithmetic.
 
 #include <cuda_runtime.h>
 
@@ -55,8 +50,8 @@ namespace {
 
 using namespace trellis;
 
-// M: the metric type (float, or __nv_bfloat16 for map_windowed16); the alpha
-// store holds M.  AB_FIRST: the LLR's order of additions (see trellis::llr).
+// M: the metric type (__nv_bfloat16); the alpha store holds M.  AB_FIRST:
+// the LLR's order of additions (see trellis::llr).
 template <class M, bool AB_FIRST>
 __global__ void __launch_bounds__(128)
 map_windowed_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
@@ -140,15 +135,6 @@ int launch(const float* gs, const float* gp, const float* a0, const float* b0,
 }
 
 }  // namespace
-
-extern "C" int turbo_map_windowed(const float* gs, const float* gp,
-                                  const float* a0, const float* b0,
-                                  float* astore, float* out, int n,
-                                  int t_train, int l_win, int nof_b,
-                                  int nof_w, void* stream) {
-  return launch<float, false>(gs, gp, a0, b0, astore, out, n, t_train, l_win,
-                              nof_b, nof_w, stream);
-}
 
 // The 16-bit body of map_windowed_pallas (_make_kernel(dtype=bf16)):
 // astore (L, 8, N) bf16; the LLRs are bf16 values written as f32.

@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -72,3 +73,28 @@ def build(names: list[str]) -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each kernel in an ``-Xptxas -v`` log,
+    by mangled name: {name: {"registers": r, "spill_stores": s,
+    "spill_loads": l}}."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            fn = m.group(1)
+            usage[fn] = {}
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
+
+
+def kernel_usage(log: str, pattern: str) -> dict[str, int]:
+    """``ptxas_usage`` of the one kernel whose mangled name holds
+    ``pattern``; raises if none or several do."""
+    found = [u for name, u in ptxas_usage(log).items() if pattern in name]
+    if len(found) != 1:
+        raise ValueError(f"{len(found)} kernels match {pattern!r} in the build log")
+    return found[0]

@@ -5,14 +5,18 @@ kernels there compute one function in several dataflows and two metric
 types; the port has a CUDA kernel for each, with a plain torch version of the
 same arithmetic:
 
-- ``map_windowed`` (``csrc/turbo_map.cu``): one radix-2 f32 chain per lane
-  with a full-depth alpha store, for ``map_windowed_pallas_r4`` (v4) and the
-  f32 body of ``map_windowed_pallas`` (v1, and every route's odd-L/T
-  shapes); any L and T.
-- ``map_windowed16`` (same file): that body at bf16, ``TURBO_KERNEL=bf16``.
-- ``map_v3`` (``csrc/turbo_v3.cu``): v1's f32 arithmetic as two chains per
-  thread on a pair of lanes, ``map_windowed_pallas``'s ``_make_kernel_v3``
+- ``map_windowed`` (``csrc/turbo_windowed.cu``): the radix-2 f32
+  single-chain function, for ``map_windowed_pallas_r4`` (v4) and the f32
+  body of ``map_windowed_pallas`` (v1, and every route's odd-L/T shapes:
+  the default route sends its L % 4 == 2 windows here); any L and T.  The
+  two chains of a lane meet in the middle, one thread each, and read each
+  other's checkpoints from shared memory (launch geometry from
+  ``windowed_geometry``).
+- ``map_v3`` (same file): the same function with one thread running both
+  chains of its lane, ``map_windowed_pallas``'s ``_make_kernel_v3``
   (``TURBO_KERNEL=v3``).
+- ``map_windowed16`` (``csrc/turbo_map.cu``): the v1 body at bf16,
+  ``TURBO_KERNEL=bf16``, one thread per lane with a full-depth alpha store.
 - ``map_fused`` (``csrc/turbo_fused.cu``): alpha and beta interleaved, LLRs
   emitted against half-depth stores, for ``map_windowed_pallas_v7`` (radix
   2) and its ``radix4=True`` form v8 (radix 4).
@@ -53,7 +57,7 @@ from srsran_4g_tpu_torch.ops.turbo import (
     _alpha_step, _beta_step, _llr_from_metrics, _r4_tables, _step_tables)
 
 
-# --- the single-chain half-iteration (turbo_map.cu) -------------------------
+# --- the single-chain half-iteration (turbo_windowed.cu, turbo_map.cu) ------
 
 
 def _single_chain(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b,
@@ -128,12 +132,7 @@ def map_windowed(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
     if not _check_windowed("map_windowed", *args):
         return map_windowed_ref(*args)
-    n = gs_ext.shape[1]
-    out = gs_ext.new_empty((l_win, n))
-    astore = gs_ext.new_empty((l_win, 8, n))
-    _launch("map_windowed", "turbo_map", "turbo_map_windowed", 6, 5, gs_ext, gp_ext,
-            a_init, b_init, astore, out, n, t_train, l_win, nof_b, nof_w)
-    return out
+    return _launch_windowed("map_windowed", "turbo_map_windowed", 1, *args)
 
 
 def map_windowed16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
@@ -157,19 +156,78 @@ def map_windowed16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
 def map_v3(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
            b_init: torch.Tensor, t_train: int, l_win: int, nof_b: int,
            nof_w: int) -> torch.Tensor:
-    """``map_windowed``'s function as two chains per thread on a pair of
-    lanes (``TURBO_KERNEL=v3``) → LLRs (L, N) float32, equal to
+    """``map_windowed``'s function with one thread running both chains of
+    its lane (``TURBO_KERNEL=v3``) → LLRs (L, N) float32, equal to
     ``map_windowed``'s.  CUDA tensors go to the kernel, CPU tensors to
     ``map_v3_ref``."""
     args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
     if not _check_windowed("map_v3", *args):
         return map_v3_ref(*args)
+    return _launch_windowed("map_v3", "turbo_map_v3", 2, *args)
+
+
+def _launch_windowed(kernel, symbol, chains, gs_ext, gp_ext, a_init, b_init, t_train,
+                     l_win, nof_b, nof_w):
     n = gs_ext.shape[1]
+    geo = windowed_geometry(n, l_win, t_train, chains)
     out = gs_ext.new_empty((l_win, n))
-    store = gs_ext.new_empty((l_win, 8, n))
-    _launch("map_v3", "turbo_v3", "turbo_map_v3", 6, 5, gs_ext, gp_ext, a_init, b_init,
-            store, out, n, t_train, l_win, nof_b, nof_w)
+    _launch(kernel, "turbo_windowed", symbol, 5, 8, gs_ext, gp_ext, a_init, b_init, out, n,
+            t_train, l_win, nof_b, nof_w, geo.lanes, geo.every, geo.smem_bytes)
     return out
+
+
+MAX_SMEM = 232448      # the shared memory an H100 block may opt into
+WINDOWED_STAGES = 8    # kStages of csrc/turbo_windowed.cu: gamma rows a chain
+# checkpoint strides c the geometry tries for each tile, in order: one thread
+# a chain (map_windowed) holds a segment of c metrics in registers, one
+# thread for both chains (map_v3) two segments, so v3 stops at 4
+WINDOWED_EVERY = {1: (4, 8), 2: (4,)}
+WINDOWED_TILES = (32, 16, 8, 4, 2, 1)
+
+
+class WindowedGeometry(NamedTuple):
+    lanes: int       # lanes per tile (one block)
+    threads: int     # 2 * lanes (map_windowed) or lanes (map_v3)
+    every: int       # checkpoint stride c
+    smem_bytes: int  # dynamic shared memory per block
+    grid: int        # blocks: ceil(N / lanes), the last one ragged
+
+
+def windowed_smem(l_win: int, lanes: int, every: int, stages: int = WINDOWED_STAGES) -> int:
+    """Bytes of shared memory a block of ``lanes`` lanes takes at window L
+    and checkpoint stride c: per lane 32 B for each checkpoint of either
+    chain (ceil(h/c) of alpha and ceil((L-h)/c) of beta, h = ceil(L/2)) and
+    two rings of ``stages`` rows of (gs, gp)."""
+    h = -(-l_win // 2)
+    checkpoints = -(-h // every) + -(-(l_win - h) // every)
+    return lanes * (32 * checkpoints + 2 * stages * 8)
+
+
+def windowed_geometry(n: int, l_win: int, t_train: int, chains_per_thread: int = 1,
+                      every: int | None = None, lanes: int | None = None
+                      ) -> WindowedGeometry:
+    """``map_windowed``'s (``chains_per_thread=1``) or ``map_v3``'s (2)
+    launch at N lanes, window L and training T: the widest tile of
+    WINDOWED_TILES, and for it the first stride of WINDOWED_EVERY, whose
+    block fits MAX_SMEM.  ``every`` or ``lanes`` force the stride or the tile
+    (the tests and tools/windowed_split.py).  T does not change the
+    geometry: a ring holds WINDOWED_STAGES rows whatever T is."""
+    if chains_per_thread not in (1, 2):
+        raise ValueError(f"chains_per_thread is 1 or 2, not {chains_per_thread}")
+    if l_win < 1 or t_train < 0 or n < 1:
+        raise ValueError(f"no launch at N={n}, L={l_win}, T={t_train}")
+    everys = WINDOWED_EVERY[chains_per_thread] if every is None else (every,)
+    if not set(everys) <= {1, 2, 4, 8} or (chains_per_thread == 2 and 8 in everys):
+        raise ValueError(f"checkpoint stride {every} is not taken with "
+                         f"{chains_per_thread} chain(s) a thread")
+    for tile in (WINDOWED_TILES if lanes is None else (lanes,)):
+        for c in everys:
+            smem = windowed_smem(l_win, tile, c)
+            if smem <= MAX_SMEM:
+                return WindowedGeometry(tile, 2 * tile // chains_per_thread, c, smem,
+                                        -(-n // tile))
+    raise ValueError(f"no tile of {lanes or WINDOWED_TILES} lanes fits L={l_win} at "
+                     f"stride {everys} in {MAX_SMEM} B")
 
 
 # --- plain steps of the paired dataflows (trellis.cuh) ----------------------
@@ -365,7 +423,7 @@ def map_fused16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     return out
 
 
-FUSED16_TILE = 32   # kTile of csrc/turbo_fused16.cu: lanes per block
+FUSED16_TILES = (32, 16, 8)  # the tiles (kTile) csrc/turbo_fused16.cu takes
 FUSED16_STAGES = 8  # kStages of csrc/turbo_fused16.cu: the gamma ring's depth
 
 
@@ -377,16 +435,19 @@ class Fused16Geometry(NamedTuple):
 
 
 def fused16_geometry(n: int, l_win: int) -> Fused16Geometry:
-    """``map_fused16``'s launch at N lanes and window L (L % 4 == 0):
-    FUSED16_TILE lanes a block; per lane 32·ceil(L/8) bytes of bf16 stores
-    (each chain stores every other of its L/4 phase-1 metrics, 8 bf16 each)
-    and 256 bytes of gamma ring (two chains, FUSED16_STAGES row pairs of 4
-    floats)."""
+    """``map_fused16``'s launch at N lanes and window L (L % 4 == 0): the
+    widest tile of FUSED16_TILES whose block fits MAX_SMEM; per lane
+    32·ceil(L/8) bytes of bf16 stores (each chain stores every other of its
+    L/4 phase-1 metrics, 8 bf16 each) and 256 bytes of gamma ring (two
+    chains, FUSED16_STAGES row pairs of 4 floats).  32 lanes up to L = 1,752,
+    8 at the full K = 6,144."""
     if l_win <= 0 or l_win % 4:
         raise ValueError(f"map_fused16 needs L % 4 == 0, not L={l_win}")
     per_lane = 32 * -(-l_win // 8) + 2 * FUSED16_STAGES * 4 * 4
-    return Fused16Geometry(FUSED16_TILE, 2 * FUSED16_TILE, FUSED16_TILE * per_lane,
-                           -(-n // FUSED16_TILE))
+    tile = next((t for t in FUSED16_TILES if t * per_lane <= MAX_SMEM), None)
+    if tile is None:
+        raise ValueError(f"map_fused16 takes L up to 7,200, not L={l_win}")
+    return Fused16Geometry(tile, 2 * tile, tile * per_lane, -(-n // tile))
 
 
 # --- the split sweep / emission half-iteration (turbo_sweep/emit.cu) -------

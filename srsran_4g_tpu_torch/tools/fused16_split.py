@@ -58,19 +58,17 @@ from srsran_4g_tpu_torch.tools import event_ms
 
 B, K, L, T = 1664, 5824, 208, 32
 VARIANT_DIR = build.BUILD_DIR / "fused16_split"
-# name -> its FUSED16_* switches; FUSED16_OPT_IN where a block takes more
-# than 48 KB of shared memory at L = 208
+# name -> its FUSED16_* switches
 VARIANTS = {
     "loads_only": {"FUSED16_LOADS_ONLY": 1},
     "compute_only": {"FUSED16_COMPUTE_ONLY": 1},
     "coop_fill": {"FUSED16_COOP_FILL": 1},
     "ring2": {"FUSED16_STAGES": 2},
     "ring4": {"FUSED16_STAGES": 4},
-    "full_stores": {"FUSED16_EVERY": 1, "FUSED16_OPT_IN": 1},
-    "tile64": {"FUSED16_TILE": 64, "FUSED16_OPT_IN": 1},
-    "tile128": {"FUSED16_TILE": 128, "FUSED16_OPT_IN": 1},
-    "ring4_full_tile64": {"FUSED16_STAGES": 4, "FUSED16_EVERY": 1, "FUSED16_TILE": 64,
-                          "FUSED16_OPT_IN": 1},
+    "full_stores": {"FUSED16_EVERY": 1},
+    "tile64": {"FUSED16_TILE": 64},
+    "tile128": {"FUSED16_TILE": 128},
+    "ring4_full_tile64": {"FUSED16_STAGES": 4, "FUSED16_EVERY": 1, "FUSED16_TILE": 64},
 }
 NOT_LLRS = ("loads_only", "compute_only")
 
@@ -83,7 +81,7 @@ def variant_geometry(name: str, l_win: int) -> tuple[int, int]:
     """(lanes a block, dynamic shared-memory bytes) of a variant, as
     ``turbo_map.fused16_geometry`` gives them for the kernel."""
     d = VARIANTS[name]
-    tile = d.get("FUSED16_TILE", tm.FUSED16_TILE)
+    tile = d.get("FUSED16_TILE", tm.fused16_geometry(1, l_win).lanes)
     every = d.get("FUSED16_EVERY", 2)
     stages = d.get("FUSED16_STAGES", tm.FUSED16_STAGES)
     return tile, tile * (2 * 16 * -(-(l_win // 4) // every) + 2 * 16 * stages)

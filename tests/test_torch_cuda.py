@@ -1,8 +1,10 @@
-"""The port on the card: each CUDA half-iteration kernel (turbo_map,
-map_fused at radix 2 and 4, sweep at radix 2 and 4, emit, map_v3) against
-its plain torch version (atol 1e-3, f32 with the same arithmetic; map_v3
-also equal to turbo_map's LLRs), the bf16 kernels (map_fused16,
-map_windowed16) equal to their plain versions, every probe kernel
+"""The port on the card: each CUDA half-iteration kernel (map_fused at
+radix 2 and 4, sweep at radix 2 and 4, emit) against its plain torch version
+(atol 1e-3, f32 with the same arithmetic), map_windowed and map_v3 equal to
+their plain version and to each other, the bf16 kernels (map_fused16,
+map_windowed16) equal to their plain versions, turbo_decode at windows of
+512 and 6144 (map_fused16 at 16 and 8 lanes a block) equal to the CPU
+decode, every probe kernel
 (ops/cuda/probes.py) against its plain version (f32 atol 1e-3, bf16 equal),
 and the PDSCH, TM4 2x2, DL-from-samples and control-channel receivers on
 CUDA against the same receivers on the CPU (identical ids, bits, flags and
@@ -44,8 +46,13 @@ def _inputs(device, b, k, l, t):
     return turbo._windowed_inputs(lsa, lp, ts, tp, l, t)[:4] + (t, l, b, k // l)
 
 
-@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (8, 424, 106, 32),
-                                     (4, 512, 64, 31), (2, 40, 40, 0)])
+# also the default route's L ≡ 2 (mod 4) window at 100 PRB MCS 23 (K = 5696,
+# L = 178), a window of 512, and the full recursion at K = 6144
+WINDOWED_SHAPES = [(8, 5824, 208, 32), (8, 424, 106, 32), (4, 512, 64, 31), (2, 40, 40, 0),
+                   (8, 5696, 178, 32), (4, 1024, 512, 32), (2, 6144, 6144, 0)]
+
+
+@pytest.mark.parametrize("b,k,l,t", WINDOWED_SHAPES)
 def test_kernel_matches_plain(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
     before = turbo_map.launches["map_windowed"]
@@ -53,7 +60,7 @@ def test_kernel_matches_plain(cuda_device, b, k, l, t):
     torch.cuda.synchronize()
     assert turbo_map.launches["map_windowed"] == before + 1
     want = turbo_map.map_windowed_ref(*args)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.parametrize("radix", [2, 4])
@@ -87,10 +94,12 @@ def test_sweep_and_emit_match_plain(cuda_device, b, k, l, t, radix):
 
 
 # also the small shape of chip_smoke.py, five tiles (N = 160), a ragged last
-# tile (N = 84), one window (W = 1) and L/4 odd (L = 188)
+# tile (N = 84), one window (W = 1), L/4 odd (L = 188), L = 512 (32 lanes a
+# block, above 48 KB) and L = K = 6144 (8 lanes a block)
 @pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16), (64, 512, 64, 16),
                                      (5, 6144, 192, 32), (3, 5824, 208, 32), (3, 40, 40, 32),
-                                     (2, 6016, 188, 32)])
+                                     (2, 6016, 188, 32), (4, 1024, 512, 32),
+                                     (2, 6144, 6144, 32)])
 def test_map_fused16_equals_plain(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
     before = turbo_map.launches["map_fused16"]
@@ -113,7 +122,9 @@ def test_map_windowed16_equals_plain(cuda_device, b, k, l, t):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
-@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (3, 424, 106, 31), (3, 40, 40, 0)])
+@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (3, 424, 106, 31), (3, 40, 40, 0),
+                                     (8, 5696, 178, 32), (4, 1024, 512, 32),
+                                     (2, 6144, 6144, 0)])
 def test_map_v3_matches_plain_and_turbo_map(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
     before = turbo_map.launches["map_v3"]
@@ -122,7 +133,27 @@ def test_map_v3_matches_plain_and_turbo_map(cuda_device, b, k, l, t):
     assert turbo_map.launches["map_v3"] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), turbo_map.map_windowed(*args).cpu().numpy())
     want = turbo_map.map_v3_ref(*args)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+# windows above 320 on the default route: 512 (L = 512, 32 lanes a block) and
+# 6144 (L = K, 8 lanes a block), against the same decode on the CPU (the
+# plain version, bf16 in both)
+@pytest.mark.parametrize("window", [512, 6144])
+def test_turbo_decode_wide_windows_match_cpu(cuda_device, window, monkeypatch):
+    monkeypatch.delenv("TURBO_KERNEL", raising=False)
+    rng = np.random.default_rng(window)
+    bits = rng.integers(0, 2, size=(2, 6144)).astype(np.int8)
+    d = turbo.turbo_encode(torch.as_tensor(bits)).numpy().astype(np.float32)
+    llr = (2 * d - 1) * 2 + rng.standard_normal(d.shape).astype(np.float32)
+    before = turbo_map.launches["map_fused16"]
+    h_g, a_g = turbo.turbo_decode(torch.as_tensor(llr, device=cuda_device), n_iter=2,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert turbo_map.launches["map_fused16"] == before + 4
+    h_c, a_c = turbo.turbo_decode(torch.as_tensor(llr), n_iter=2, window=window)
+    np.testing.assert_array_equal(a_g.cpu().numpy(), a_c.numpy())
+    np.testing.assert_array_equal(h_g.cpu().numpy(), bits)
 
 
 def test_dl_from_samples_on_card_matches_cpu(cuda_device):

@@ -11,7 +11,8 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "ops.zadoff_chu", "models.sync", "models.pcfich", "models.enb_dl", "models.ue_dl",
             "ops.cuda.probes", "tools.turbo_probe2", "tools.turbo_probe3", "tools.turbo_probe6",
             "tools.turbo_probe7", "utils.bits", "ops.convcode", "models.regs", "models.phich",
-            "models.pbch", "models.pdcch", "models.dci", "models.ra", "tools.fused16_split")
+            "models.pbch", "models.pdcch", "models.dci", "models.ra", "tools.fused16_split",
+            "tools.windowed_split")
 
 _CHECK = """
 import importlib, pkgutil, sys

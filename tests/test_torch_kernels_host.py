@@ -43,7 +43,7 @@ from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import probes
 from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 from srsran_4g_tpu_torch.ops.cuda.build import CSRC
-from srsran_4g_tpu_torch.tools import fused16_split
+from srsran_4g_tpu_torch.tools import fused16_split, windowed_split
 
 torch.set_num_threads(2)
 
@@ -63,6 +63,9 @@ _CUDA_RUNTIME = r"""
 #include <vector>
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
 };
 struct dim3 {
   unsigned x, y, z;
@@ -248,13 +251,13 @@ _LAUNCH = re.compile(
 _EXTERN_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 # C entry -> (source, pointer args, int args), as ops/cuda/turbo_map.py binds them
-_ENTRIES = {"turbo_map_windowed": ("turbo_map", 6, 5),
+_ENTRIES = {"turbo_map_windowed": ("turbo_windowed", 5, 8),
             "turbo_map_windowed16": ("turbo_map", 6, 5),
             "turbo_map_fused": ("turbo_fused", 7, 6),
             "turbo_map_fused16": ("turbo_fused16", 5, 7),
             "turbo_sweep": ("turbo_sweep", 6, 6),
             "turbo_emit": ("turbo_emit", 5, 2),
-            "turbo_map_v3": ("turbo_v3", 6, 5),
+            "turbo_map_v3": ("turbo_windowed", 5, 8),
             "probe2": ("probe_acs", 5, 4),
             "probe6_full": ("probe_acs", 6, 2),
             "probe6_bf16": ("probe_acs", 6, 2),
@@ -312,6 +315,13 @@ def host_kernels(tmp_path_factory):
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[symbol] = fn
+    # the shared-memory bytes each entry checks a block's against
+    for symbol, name, n_int in (("turbo_windowed_smem", "turbo_windowed", 4),
+                                ("turbo_fused16_smem", "turbo_fused16", 2)):
+        fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
+        fn.argtypes = [ctypes.c_int] * n_int
+        fn.restype = ctypes.c_longlong
+        fns[symbol] = fn
     return fns
 
 
@@ -340,13 +350,74 @@ def _close(got, want):
 SHAPES = [(3, 256, 64, 16), (3, 424, 106, 32), (2, 512, 64, 31), (2, 40, 40, 0)]
 
 
+def _windowed(host_kernels, entry, args, **force):
+    """``turbo_windowed.cu``'s entry (map_windowed or map_v3) at the
+    geometry ``windowed_geometry`` gives (``force``: its every/lanes)."""
+    gs, gp, a0, b0, t, l, nof_b, nof_w = args
+    n = gs.shape[1]
+    geo = tm.windowed_geometry(n, l, t, 2 if entry == "turbo_map_v3" else 1, **force)
+    out = gs.new_empty((l, n))
+    _run(host_kernels[entry], gs, gp, a0, b0, out, n, t, l, nof_b, nof_w, geo.lanes,
+         geo.every, geo.smem_bytes)
+    return out
+
+
+# map_windowed's kernel (turbo_windowed.cu) at its default geometry
 @pytest.mark.parametrize("b,k,l,t", SHAPES)
 def test_turbo_map_source_matches_plain(host_kernels, b, k, l, t):
     args = _inputs(b, k, l, t)
-    gs, n = args[0], args[0].shape[1]
-    out, astore = gs.new_empty((l, n)), gs.new_empty((l, 8, n))
-    _run(host_kernels["turbo_map_windowed"], *args[:4], astore, out, n, t, l, b, k // l)
-    _close(out, tm.map_windowed_ref(*args))
+    _equal(_windowed(host_kernels, "turbo_map_windowed", args), tm.map_windowed_ref(*args))
+
+
+# two tiles with a ragged last one (N = 40); odd L (h = 32 and L - h = 31,
+# so at c = 4 and 8 a partial segment meets the middle); odd T with L ≡ 2
+# (mod 4) (h = 53); the full recursion (L = K, T = 0, W = 1, N odd)
+WINDOWED_SHAPES = [(5, 512, 64, 16), (3, 189, 63, 16), (2, 424, 106, 31), (3, 40, 40, 0)]
+# (entry, checkpoint stride c) for every stride the geometry can pick
+WINDOWED_STRIDES = [("turbo_map_windowed", c) for c in (1, 2, 4, 8)] + [
+    ("turbo_map_v3", c) for c in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("entry,every", WINDOWED_STRIDES)
+@pytest.mark.parametrize("b,k,l,t", WINDOWED_SHAPES)
+def test_turbo_windowed_sources_equal_plain(host_kernels, entry, every, b, k, l, t):
+    args = _inputs(b, k, l, t)
+    _equal(_windowed(host_kernels, entry, args, every=every), tm.map_windowed_ref(*args))
+
+
+# the narrow tiles the geometry picks at large L: 8 lanes (five blocks) and
+# one lane a block
+@pytest.mark.parametrize("lanes", [8, 1])
+@pytest.mark.parametrize("entry", ["turbo_map_windowed", "turbo_map_v3"])
+def test_turbo_windowed_narrow_tiles_equal_plain(host_kernels, entry, lanes):
+    args = _inputs(*WINDOWED_SHAPES[0])
+    _equal(_windowed(host_kernels, entry, args, lanes=lanes), tm.map_windowed_ref(*args))
+
+
+def test_windowed_geometry_fits_and_covers_every_window(host_kernels):
+    """For every L from 1 to 6,144 and T in {0, 31, 32}, both entries'
+    geometry fits an H100 block, agrees with the bytes the entry checks, is
+    taken by the entry (asked at N = 0), and its tiles cover every lane
+    once."""
+    need = host_kernels["turbo_windowed_smem"]
+    for entry, chains in (("turbo_map_windowed", 1), ("turbo_map_v3", 2)):
+        fn = host_kernels[entry]
+        for l in range(1, 6145):
+            for t in (0, 31, 32):
+                for n in (1, 37, 46592):
+                    geo = tm.windowed_geometry(n, l, t, chains)
+                    assert geo.grid * geo.lanes >= n > (geo.grid - 1) * geo.lanes
+                assert geo.smem_bytes <= 232448 and geo.threads == 2 * geo.lanes // chains
+                assert need(l, geo.lanes, geo.every, chains - 1) == geo.smem_bytes
+                assert fn(None, None, None, None, None, 0, t, l, 1, 1, geo.lanes, geo.every,
+                          geo.smem_bytes, None) == 0
+            # too little shared memory, a tile or stride the kernel does not take
+            assert fn(None, None, None, None, None, 0, 32, l, 1, 1, geo.lanes, geo.every,
+                      geo.smem_bytes - 16, None) != 0
+            assert fn(None, None, None, None, None, 0, 32, l, 1, 1, 64, 4, 232448, None) != 0
+            assert fn(None, None, None, None, None, 0, 32, l, 1, 1, 1, 3, 232448, None) != 0
+    assert tm.windowed_geometry(1664, 6144, 32)[:3] == (8, 16, 8)  # c = 8, 8 lanes
+    assert tm.windowed_geometry(46592, 208, 32)[:3] == (32, 64, 4)
 
 
 @pytest.mark.parametrize("radix", [2, 4])
@@ -390,9 +461,11 @@ def test_turbo_map16_source_matches_plain(host_kernels, b, k, l, t):
 
 
 # five tiles of 32 lanes (N = 160), a ragged last tile (N = 84), one window
-# (W = 1), and L/4 odd (K = 6016, L = 188)
+# (W = 1), L/4 odd (K = 6016, L = 188), and windows above 320 that take 16
+# (L = 1,792) and 8 (L = 3,584) lanes a block
 @pytest.mark.parametrize("b,k,l,t", [SHAPES[0], (2, 512, 128, 32), (5, 6144, 192, 32),
-                                     (3, 5824, 208, 32), (3, 40, 40, 32), (2, 6016, 188, 32)])
+                                     (3, 5824, 208, 32), (3, 40, 40, 32), (2, 6016, 188, 32),
+                                     (2, 3584, 1792, 32), (2, 7168, 3584, 32)])
 def test_turbo_fused16_source_matches_plain(host_kernels, b, k, l, t):
     args = _inputs(b, k, l, t)
     gs, n = args[0], args[0].shape[1]
@@ -401,6 +474,24 @@ def test_turbo_fused16_source_matches_plain(host_kernels, b, k, l, t):
     _run(host_kernels["turbo_map_fused16"], *args[:4], out, n, t, l, b, k // l, geo.lanes,
          geo.smem_bytes)
     _equal(out, tm.map_fused16_ref(*args))
+
+
+def test_fused16_geometry_fits_every_window(host_kernels):
+    """For every L % 4 == 0 from 4 to 6,144 the geometry fits an H100
+    block, agrees with the bytes the entry checks, and the entry takes it
+    (asked at N = 0)."""
+    need, fn = host_kernels["turbo_fused16_smem"], host_kernels["turbo_map_fused16"]
+    for l in range(4, 6145, 4):
+        geo = tm.fused16_geometry(46592, l)
+        assert geo.smem_bytes <= 232448 and geo.threads == 2 * geo.lanes
+        assert need(l, geo.lanes) == geo.smem_bytes
+        for t in (0, 32):
+            assert fn(None, None, None, None, None, 0, t, l, 1, 1, geo.lanes, geo.smem_bytes,
+                      None) == 0
+        assert fn(None, None, None, None, None, 0, 32, l, 1, 1, geo.lanes, geo.smem_bytes - 16,
+                  None) != 0
+    assert [tm.fused16_geometry(1, l).lanes for l in (208, 1752, 1756, 3568, 3572, 6144)] == [
+        32, 32, 16, 16, 8, 8]
 
 
 def test_fused16_split_variants_build_for_the_host(tmp_path):
@@ -432,14 +523,45 @@ def test_fused16_variants_match_plain_on_the_host(tmp_path, variant):
     _equal(out, tm.map_fused16_ref(*args))
 
 
-# odd N (one lane without a partner) in the last shape
+def test_windowed_split_variants_build_for_the_host(host_kernels, tmp_path):
+    """Every build of turbo_windowed.cu that tools/windowed_split times still
+    compiles (host build), and every variant whose outputs are LLRs computes
+    the kernel's function, in both entries, at its own geometry."""
+    cxx = _host_dir(tmp_path)
+    names = {windowed_split.build_name(name): name for name in windowed_split.VARIANTS
+             if windowed_split.build_name(name)}
+    _wait({lib: _host_build(cxx, tmp_path, "turbo_windowed", lib,
+                            windowed_split.variant_flags(name)) for lib, name in names.items()})
+    args = _inputs(*WINDOWED_SHAPES[0])
+    want = tm.map_windowed_ref(*args)
+    gs, gp, a0, b0, t, l, nof_b, nof_w = args
+    n = gs.shape[1]
+    for name in windowed_split.VARIANTS:
+        if name in windowed_split.NOT_LLRS:
+            continue
+        for wrapper, (symbol, _) in windowed_split.ENTRIES.items():
+            if not windowed_split.applies(name, wrapper):
+                continue
+            lib = windowed_split.build_name(name)
+            if lib is None:
+                fn = host_kernels[symbol]
+            else:
+                fn = getattr(ctypes.CDLL(str(tmp_path / f"lib{lib}.so")), symbol)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            geo = windowed_split.variant_geometry(name, wrapper, n, l, t)
+            out = gs.new_empty((l, n))
+            _run(fn, gs, gp, a0, b0, out, n, t, l, nof_b, nof_w, geo.lanes, geo.every,
+                 geo.smem_bytes)
+            _equal(out, want)
+
+
+# map_v3's kernel (turbo_windowed.cu) at its default geometry; odd N in the
+# last shape
 @pytest.mark.parametrize("b,k,l,t", SHAPES[:3] + [(3, 40, 40, 0)])
 def test_turbo_v3_source_matches_plain(host_kernels, b, k, l, t):
     args = _inputs(b, k, l, t)
-    gs, n = args[0], args[0].shape[1]
-    out, store = gs.new_empty((l, n)), gs.new_empty((l, 8, n))
-    _run(host_kernels["turbo_map_v3"], *args[:4], store, out, n, t, l, b, k // l)
-    _equal(out, tm.map_v3_ref(*args))
+    _equal(_windowed(host_kernels, "turbo_map_v3", args), tm.map_v3_ref(*args))
 
 
 # --- the probe kernels (probe_acs.cu, probe_launch.cu) -----------------------

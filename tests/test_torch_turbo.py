@@ -106,3 +106,23 @@ def test_map_windowed_checks_its_inputs():
         turbo_map.map_windowed(gs, gs, a, a, 32, 64, 2, 4)  # N != B*W
     with pytest.raises(TypeError):
         turbo_map.map_windowed(gs.double(), gs, a, a, 32, 64, 2, 3)
+
+
+# a window above 320, L = 512 at K = 1024: the default route (v9, bf16
+# metrics, map_fused16) to the 16-bit bars and the f32 route (v4,
+# map_windowed) to atol 1e-3, both with identical hard bits, against the XLA
+# decoder
+@pytest.mark.parametrize("kernel", ["v9", "v4"])
+def test_turbo_decode_window_512_matches_xla(kernel, monkeypatch):
+    monkeypatch.setenv("TURBO_KERNEL", kernel)
+    rng = np.random.default_rng(5)
+    _, llr = _noisy_codeword(rng, 2, 1024, 1.0)
+    h_x, a_x = jturbo.turbo_decode(llr, n_iter=2, window=512, train=32, backend="xla")
+    h_t, a_t = turbo.turbo_decode(torch.as_tensor(llr), n_iter=2, window=512, train=32)
+    a_x = np.asarray(a_x)
+    np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_x))
+    if kernel == "v9":
+        np.testing.assert_allclose(a_t.numpy(), a_x, atol=2.5, rtol=0)
+        assert float(np.abs(a_t.numpy() - a_x).mean()) < 0.5
+    else:
+        np.testing.assert_allclose(a_t.numpy(), a_x, atol=1e-3, rtol=0)
