@@ -44,12 +44,14 @@ read just after:
   unpacks the grant and decodes the PDSCH it names, every field checked
   exactly on every capture.
 
-``map_fused16`` (the default route's kernel), ``map_windowed`` and
-``map_v3`` are held exactly equal to their plain versions (max |diff| 0),
-also at five tiles, a ragged last tile, one window, L/4 odd, L = 178, 512
-and 6144 (the full recursion at T = 0 for ``map_windowed`` and
-``map_v3``); each kernel's launch geometry is logged beside its build's
-registers and spills, and given in the kernels line.
+``map_fused16`` (the default route's kernel), ``map_windowed``,
+``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
+exactly equal to their plain versions (max |diff| 0), also at five tiles, a
+ragged last tile, one window, L/4 odd, L = 178, 512 and 6144 (the full
+recursion at T = 0 for the single-chain kernels, T = 32 for the fused
+ones); each kernel's launch geometry is logged beside its build's registers
+and spills, and given in the kernels line.  The decodes under ``bf16``,
+``v7`` and ``v8`` are profiled for their device time.
 
 Output (stdout): the card's name and power limit, the build and check
 lines, per-path subframes/s (best of 3), a per-stage split, then one JSON
@@ -146,7 +148,7 @@ PHICH_AT = ((3, 1), (7, 5))  # (group, nseq)
 # TURBO_KERNEL path whose decode gives its launches)
 ROUTES = {
     "turbo_map": ("map_windowed", None, "turbo_windowed.cu", 272, "v4"),
-    "map_windowed16": ("map_windowed16", None, "turbo_map.cu", 1323, "bf16"),
+    "map_windowed16": ("map_windowed16", None, "turbo_windowed.cu", 1323, "bf16"),
     "map_v3": ("map_v3", None, "turbo_windowed.cu", 1189, "v3"),
     "map_fused16": ("map_fused16", None, "turbo_fused16.cu", 942, "v9"),
     "map_fused_r2": ("map_fused", 2, "turbo_fused.cu", 872, "v7"),
@@ -155,7 +157,9 @@ ROUTES = {
     "sweep_r4": ("sweep", 4, "turbo_sweep.cu", 426, "v5"),
     "emit": ("emit", None, "turbo_emit.cu", 1150, "v5"),
 }
-EXACT = ("turbo_map", "map_v3", "map_fused16")  # routes held to max |diff| 0
+# routes held to max |diff| 0: every route but sweep and emit
+EXACT = ("turbo_map", "map_windowed16", "map_v3", "map_fused16", "map_fused_r2",
+         "map_fused_r4")
 # the default route at L ≡ 2 (mod 4): 100 PRB, MCS 23 (I_TBS 21, 64QAM), TBS
 # 51024, 9 code blocks of K = 5696, window L = 178
 MCS23_TBS, MCS23_K, MCS23_L = 51024, 5696, 178
@@ -293,28 +297,29 @@ def check_kernel(route: str, args, time_it=False) -> dict:
 
 
 def check_kernels(dev, gen, b, k) -> dict:
-    """Every route at the bench shape (timed), map_windowed and map_v3 also
+    """Every route at the bench shape (timed), the single-chain routes also
     at the MCS 23 path's shape (timed, under ``out["mcs23"]``), and every
     route at small shapes; the largest |diff| of each route over its
     checks."""
     bench = gamma_inputs(dev, gen, b, k, 208, 32)
     out = {r: check_kernel(r, bench, time_it=True) for r in ROUTES}
-    mcs23 = gamma_inputs(dev, gen, BATCH * 9, MCS23_K, MCS23_L, 32)
-    out["mcs23"] = {r: check_kernel(r, mcs23, time_it=True) for r in ("turbo_map", "map_v3")}
-    del mcs23
     any_shape = ("turbo_map", "map_windowed16", "map_v3")  # the v1 bodies
+    mcs23 = gamma_inputs(dev, gen, BATCH * 9, MCS23_K, MCS23_L, 32)
+    out["mcs23"] = {r: check_kernel(r, mcs23, time_it=True) for r in any_shape}
+    del mcs23
+    fused = ("map_fused16", "map_fused_r2", "map_fused_r4")
     small = [((64, 424, 106, 32), any_shape + ("sweep_r2", "sweep_r4", "emit")),  # L ≡ 2 (mod 4)
              ((32, 512, 64, 31), any_shape),                                      # odd T
              ((32, 504, 63, 16), any_shape),                                      # odd L
              ((33, 40, 40, 0), any_shape),                                        # L = K, T = 0, N odd
              ((64, 512, 64, 16), tuple(r for r in ROUTES if r not in any_shape)),  # L % 4 == 0
              ((5, 6144, 192, 32), ("map_fused16",)),  # N = 160, W = 32
-             ((3, 5824, 208, 32), ("map_fused16",)),  # N = 84: a ragged last tile
-             ((3, 40, 40, 32), ("map_fused16",)),     # W = 1
-             ((2, 6016, 188, 32), ("map_fused16",)),  # L/4 odd
-             ((32, 1024, 512, 32), ("turbo_map", "map_v3", "map_fused16")),  # L = 512
-             ((3, 6144, 6144, 0), ("turbo_map", "map_v3")),  # the full recursion at K = 6144
-             ((3, 6144, 6144, 32), ("map_fused16",))]  # L = K = 6144, W = 1
+             ((3, 5824, 208, 32), fused),             # N = 84: a ragged last tile
+             ((3, 40, 40, 32), fused),                # W = 1
+             ((2, 6016, 188, 32), fused),             # L/4 odd
+             ((32, 1024, 512, 32), any_shape + fused),  # L = 512
+             ((3, 6144, 6144, 0), any_shape),  # the full recursion at K = 6144
+             ((3, 6144, 6144, 32), fused)]  # L = K = 6144, W = 1
     for shape, names in small:
         args = gamma_inputs(dev, gen, *shape)
         for r in names:
@@ -327,18 +332,20 @@ def check_kernels(dev, gen, b, k) -> dict:
     return out
 
 
-def kernel_symbol(route: str, radix, geo) -> str:
-    """A piece of the mangled name of the kernel that ``route`` launches at
+def kernel_symbol(route: str, radix, geo) -> tuple[str, ...]:
+    """Pieces of the mangled name of the kernel that ``route`` launches at
     the bench shape (``geo``: its geometry), to find it in the build log."""
-    if route in ("turbo_map", "map_v3"):
-        return f"{'windowed' if route == 'turbo_map' else 'v3'}_kernelILi{geo.every}E"
+    if route in ("turbo_map", "map_windowed16"):
+        return f"windowed_kernelILi{geo.every}E", "F32" if route == "turbo_map" else "B16"
+    if route == "map_v3":
+        return (f"v3_kernelILi{geo.every}E",)
     if route == "map_fused16":
-        return f"fused16_kernelILi{geo.lanes}E"
-    if route == "map_windowed16":
-        return "map_windowed_kernel"
+        return (f"fused16_kernelILi{geo.lanes}E",)
+    if route in ("map_fused_r2", "map_fused_r4"):
+        return (f"fused_kernelILi{geo.every}ELi{radix}E",)
     if route == "emit":
-        return "emit_kernel"
-    return f"{ROUTES[route][0].split('_')[-1]}_kernelILi{radix}E"
+        return ("emit_kernel",)
+    return (f"sweep_kernelILi{radix}E",)
 
 
 def launch_counts(names=WRAPPERS) -> dict[str, int]:
@@ -482,9 +489,10 @@ def drive_path(cfg, rx, bits, kernel: str) -> dict[str, int]:
     return counts
 
 
-def time_paths(cfg, rx, bits, card: str) -> None:
+def time_paths(cfg, rx, bits, card: str) -> dict[str, float]:
     """Best of PATH_REPS decodes under each TURBO_KERNEL, the paths taken in
-    turn in every round so that host noise falls on all of them alike."""
+    turn in every round so that host noise falls on all of them alike.
+    Returns each path's best time in seconds."""
     times = {kernel: [] for kernel in PATH_KERNELS}
     for _ in range(PATH_REPS):
         for kernel in PATH_KERNELS:
@@ -496,6 +504,7 @@ def time_paths(cfg, rx, bits, card: str) -> None:
         log(f"[{card}] TURBO_KERNEL={kernel}: decode of {BATCH} subframes best of "
             f"{PATH_REPS} {min(t) * 1e3:.2f} ms ({', '.join(f'{x * 1e3:.2f}' for x in t)})"
             f" = {BATCH / min(t):.1f} subframes/s")
+    return {kernel: min(t) for kernel, t in times.items()}
 
 
 def mimo_lane(dev, gen, card: str) -> dict[str, int]:
@@ -1102,11 +1111,14 @@ def main() -> None:
     n_bench = BATCH * grp.count * (grp.K // 208)
     geos = {"map_fused16": tm.fused16_geometry(n_bench, 208),
             "turbo_map": tm.windowed_geometry(n_bench, 208, 32, 1),
-            "map_v3": tm.windowed_geometry(n_bench, 208, 32, 2)}
+            "map_windowed16": tm.windowed_geometry(n_bench, 208, 32, 1, metric_bytes=16),
+            "map_v3": tm.windowed_geometry(n_bench, 208, 32, 2),
+            "map_fused_r2": tm.fused_geometry(n_bench, 208, 2),
+            "map_fused_r4": tm.fused_geometry(n_bench, 208, 4)}
     for route, geo in geos.items():
         log(f"{route} at the bench shape: {geo}")
     usage = {route: build.kernel_usage(libs[source[:-3]].with_suffix(".log").read_text(),
-                                       kernel_symbol(route, radix, geos.get(route)))
+                                       *kernel_symbol(route, radix, geos.get(route)))
              for route, (_, radix, source, _, _) in ROUTES.items()}
     for route, u in usage.items():
         log(f"{route} kernel at the bench shape: {u}")
@@ -1153,7 +1165,15 @@ def main() -> None:
     for kernel in PATH_KERNELS:
         if kernel != "v9":
             paths[kernel] = drive_path(cfg, rx, bits, kernel)
-    time_paths(cfg, rx, bits, card)
+    best = time_paths(cfg, rx, bits, card)
+    path_device_ms = {}
+    for kernel in ("bf16", "v7", "v8"):  # the redesigned kernels' decodes
+        os.environ["TURBO_KERNEL"] = kernel
+        log(f"[{card}] TURBO_KERNEL={kernel} decode, profiled:")
+        prof = profile_decode(cfg, rx, best[kernel], card,
+                              turbo="fused_kernel" if kernel != "bf16" else "windowed_kernel")
+        path_device_ms[kernel] = dict(zip(("decode_device_ms", "kernel_device_ms"), prof or ()))
+    os.environ.pop("TURBO_KERNEL", None)
     mimo_lane(dev, gen, card)
     default_route = mcs23_path(dev, gen, card, kern)
     dl_path(dev, gen, card)
@@ -1181,7 +1201,8 @@ def main() -> None:
             **usage[route],
             **({"vs_turbo_map_max_abs_err": kern[route]["vs_turbo_map"]}
                if "vs_turbo_map" in kern[route] else {}),
-            **({"default_route": default_route} if route == "turbo_map" else {})))
+            **({"default_route": default_route} if route == "turbo_map" else {}),
+            **path_device_ms.get(path, {})))
     print(json.dumps({"kernels": kernels + probe_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

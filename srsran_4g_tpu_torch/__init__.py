@@ -2,7 +2,8 @@
 
 The module tree mirrors ``srsran_4g_tpu/`` file for file.  The package
 imports torch and numpy only; the windowed max-log-MAP half-iteration runs
-in a hand-written CUDA kernel (``csrc/turbo_map.cu``).
+in hand-written CUDA kernels, one for each of its dataflows and metric types
+(``csrc/turbo_*.cu``, bound in ``ops/cuda/turbo_map.py``).
 
 Entry points that create tensors default to the CUDA device and raise when
 no card is present unless the caller passes ``device="cpu"``; functions that

@@ -91,10 +91,10 @@ def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
     return usage
 
 
-def kernel_usage(log: str, pattern: str) -> dict[str, int]:
-    """``ptxas_usage`` of the one kernel whose mangled name holds
-    ``pattern``; raises if none or several do."""
-    found = [u for name, u in ptxas_usage(log).items() if pattern in name]
+def kernel_usage(log: str, *patterns: str) -> dict[str, int]:
+    """``ptxas_usage`` of the one kernel whose mangled name holds every one
+    of ``patterns``; raises if none or several do."""
+    found = [u for name, u in ptxas_usage(log).items() if all(p in name for p in patterns)]
     if len(found) != 1:
-        raise ValueError(f"{len(found)} kernels match {pattern!r} in the build log")
+        raise ValueError(f"{len(found)} kernels match {patterns!r} in the build log")
     return found[0]

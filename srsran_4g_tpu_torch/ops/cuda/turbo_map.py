@@ -15,11 +15,12 @@ same arithmetic:
 - ``map_v3`` (same file): the same function with one thread running both
   chains of its lane, ``map_windowed_pallas``'s ``_make_kernel_v3``
   (``TURBO_KERNEL=v3``).
-- ``map_windowed16`` (``csrc/turbo_map.cu``): the v1 body at bf16,
-  ``TURBO_KERNEL=bf16``, one thread per lane with a full-depth alpha store.
-- ``map_fused`` (``csrc/turbo_fused.cu``): alpha and beta interleaved, LLRs
-  emitted against half-depth stores, for ``map_windowed_pallas_v7`` (radix
-  2) and its ``radix4=True`` form v8 (radix 4).
+- ``map_windowed16`` (same file): the same dataflow with bf16 metrics (the
+  v1 body at bf16, ``TURBO_KERNEL=bf16``); any L and T.
+- ``map_fused`` (``csrc/turbo_fused.cu``): the fused two-phase dataflow in
+  f32, for ``map_windowed_pallas_v7`` (radix 2) and its ``radix4=True``
+  form v8 (radix 4); one thread per chain, its phase-1 metrics checkpointed
+  in shared memory (launch geometry from ``fused_geometry``).
 - ``map_fused16`` (``csrc/turbo_fused16.cu``): v7's radix-2 dataflow at
   bf16 with normalisation in training, ``map_windowed_pallas_v9`` (the
   default), its half-depth stores in shared memory and one thread per chain
@@ -57,7 +58,7 @@ from srsran_4g_tpu_torch.ops.turbo import (
     _alpha_step, _beta_step, _llr_from_metrics, _r4_tables, _step_tables)
 
 
-# --- the single-chain half-iteration (turbo_windowed.cu, turbo_map.cu) ------
+# --- the single-chain half-iteration (turbo_windowed.cu) --------------------
 
 
 def _single_chain(gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b,
@@ -145,12 +146,8 @@ def map_windowed16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     args = (gs_ext, gp_ext, a_init, b_init, t_train, l_win, nof_b, nof_w)
     if not _check_windowed("map_windowed16", *args):
         return map_windowed16_ref(*args)
-    n = gs_ext.shape[1]
-    out = gs_ext.new_empty((l_win, n))
-    astore = gs_ext.new_empty((l_win, 8, n), dtype=torch.bfloat16)
-    _launch("map_windowed16", "turbo_map", "turbo_map_windowed16", 6, 5, gs_ext, gp_ext,
-            a_init, b_init, astore, out, n, t_train, l_win, nof_b, nof_w)
-    return out
+    return _launch_windowed("map_windowed16", "turbo_map_windowed16", 1, *args,
+                            metric_bytes=16)
 
 
 def map_v3(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
@@ -167,9 +164,9 @@ def map_v3(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
 
 
 def _launch_windowed(kernel, symbol, chains, gs_ext, gp_ext, a_init, b_init, t_train,
-                     l_win, nof_b, nof_w):
+                     l_win, nof_b, nof_w, metric_bytes=32):
     n = gs_ext.shape[1]
-    geo = windowed_geometry(n, l_win, t_train, chains)
+    geo = windowed_geometry(n, l_win, t_train, chains, metric_bytes=metric_bytes)
     out = gs_ext.new_empty((l_win, n))
     _launch(kernel, "turbo_windowed", symbol, 5, 8, gs_ext, gp_ext, a_init, b_init, out, n,
             t_train, l_win, nof_b, nof_w, geo.lanes, geo.every, geo.smem_bytes)
@@ -193,27 +190,32 @@ class WindowedGeometry(NamedTuple):
     grid: int        # blocks: ceil(N / lanes), the last one ragged
 
 
-def windowed_smem(l_win: int, lanes: int, every: int, stages: int = WINDOWED_STAGES) -> int:
+def windowed_smem(l_win: int, lanes: int, every: int, stages: int = WINDOWED_STAGES,
+                  metric_bytes: int = 32) -> int:
     """Bytes of shared memory a block of ``lanes`` lanes takes at window L
-    and checkpoint stride c: per lane 32 B for each checkpoint of either
-    chain (ceil(h/c) of alpha and ceil((L-h)/c) of beta, h = ceil(L/2)) and
-    two rings of ``stages`` rows of (gs, gp)."""
+    and checkpoint stride c: per lane ``metric_bytes`` (32 for f32 metrics,
+    16 for bf16) for each checkpoint of either chain (ceil(h/c) of alpha and
+    ceil((L-h)/c) of beta, h = ceil(L/2)) and two rings of ``stages`` rows of
+    (gs, gp)."""
     h = -(-l_win // 2)
     checkpoints = -(-h // every) + -(-(l_win - h) // every)
-    return lanes * (32 * checkpoints + 2 * stages * 8)
+    return lanes * (metric_bytes * checkpoints + 2 * stages * 8)
 
 
 def windowed_geometry(n: int, l_win: int, t_train: int, chains_per_thread: int = 1,
-                      every: int | None = None, lanes: int | None = None
-                      ) -> WindowedGeometry:
-    """``map_windowed``'s (``chains_per_thread=1``) or ``map_v3``'s (2)
-    launch at N lanes, window L and training T: the widest tile of
-    WINDOWED_TILES, and for it the first stride of WINDOWED_EVERY, whose
-    block fits MAX_SMEM.  ``every`` or ``lanes`` force the stride or the tile
-    (the tests and tools/windowed_split.py).  T does not change the
-    geometry: a ring holds WINDOWED_STAGES rows whatever T is."""
-    if chains_per_thread not in (1, 2):
-        raise ValueError(f"chains_per_thread is 1 or 2, not {chains_per_thread}")
+                      every: int | None = None, lanes: int | None = None,
+                      metric_bytes: int = 32) -> WindowedGeometry:
+    """``map_windowed``'s (``chains_per_thread=1``), ``map_v3``'s (2) or,
+    with ``metric_bytes=16``, ``map_windowed16``'s launch at N lanes, window
+    L and training T: the widest tile of WINDOWED_TILES, and for it the first
+    stride of WINDOWED_EVERY, whose block fits MAX_SMEM.  ``every`` or
+    ``lanes`` force the stride or the tile (the tests and
+    tools/windowed_split.py).  T does not change the geometry: a ring holds
+    WINDOWED_STAGES rows whatever T is."""
+    if chains_per_thread not in (1, 2) or metric_bytes not in (16, 32) or (
+            chains_per_thread == 2 and metric_bytes == 16):
+        raise ValueError(f"no kernel takes {chains_per_thread} chain(s) a thread with "
+                         f"{metric_bytes}-byte metrics")
     if l_win < 1 or t_train < 0 or n < 1:
         raise ValueError(f"no launch at N={n}, L={l_win}, T={t_train}")
     everys = WINDOWED_EVERY[chains_per_thread] if every is None else (every,)
@@ -222,7 +224,7 @@ def windowed_geometry(n: int, l_win: int, t_train: int, chains_per_thread: int =
                          f"{chains_per_thread} chain(s) a thread")
     for tile in (WINDOWED_TILES if lanes is None else (lanes,)):
         for c in everys:
-            smem = windowed_smem(l_win, tile, c)
+            smem = windowed_smem(l_win, tile, c, metric_bytes=metric_bytes)
             if smem <= MAX_SMEM:
                 return WindowedGeometry(tile, 2 * tile // chains_per_thread, c, smem,
                                         -(-n // tile))
@@ -382,12 +384,49 @@ def map_fused(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
     if not _check_windowed("map_fused", *args):
         return map_fused_ref(*args, radix)
     n = gs_ext.shape[1]
+    geo = fused_geometry(n, l_win, radix)
     out = gs_ext.new_empty((l_win, n))
-    astore = gs_ext.new_empty((l_win // 4, 8, n))
-    bstore = gs_ext.new_empty((l_win // 4, 8, n))
-    _launch("map_fused", "turbo_fused", "turbo_map_fused", 7, 6, gs_ext, gp_ext, a_init,
-            b_init, astore, bstore, out, n, t_train, l_win, nof_b, nof_w, radix)
+    _launch("map_fused", "turbo_fused", "turbo_map_fused", 5, 9, gs_ext, gp_ext, a_init,
+            b_init, out, n, t_train, l_win, nof_b, nof_w, radix, geo.lanes, geo.every,
+            geo.smem_bytes)
     return out
+
+
+FUSED_STAGES = 4      # kStages of csrc/turbo_fused.cu: row pairs a chain
+# radix -> the checkpoint strides c (row pairs) map_fused's geometry tries, in
+# order: radix 4 rebuilds with its costlier two-step, and is faster at c = 2
+# (4 blocks an SM) than at c = 4 (6); radix 2 the reverse (PERF.md, map_fused)
+FUSED_EVERY = {2: (4,), 4: (2, 4)}
+
+
+def fused_smem(l_win: int, lanes: int, every: int, stages: int = FUSED_STAGES) -> int:
+    """Bytes of shared memory a ``map_fused`` block of ``lanes`` lanes takes
+    at window L (L % 4 == 0) and checkpoint stride c pairs: per lane 32 B for
+    each of the ceil(L/(4c)) checkpoints of either chain and two rings of
+    ``stages`` row pairs of 16 B."""
+    return lanes * (2 * 32 * -(-(l_win // 4) // every) + 2 * stages * 16)
+
+
+def fused_geometry(n: int, l_win: int, radix: int, every: int | None = None,
+                   lanes: int | None = None) -> WindowedGeometry:
+    """``map_fused``'s launch at N lanes, window L (L % 4 == 0) and radix:
+    the widest tile of WINDOWED_TILES, and for it the first stride of
+    FUSED_EVERY[radix], whose block fits MAX_SMEM (at c = 4: 32 lanes up to
+    L = 1,776, 16 up to 3,600, 8 up to 7,232).  ``every`` or ``lanes`` force
+    the stride or the tile (the tests and tools/fused_split.py)."""
+    if l_win <= 0 or l_win % 4 or n < 1:
+        raise ValueError(f"map_fused has no launch at N={n}, L={l_win}")
+    _check_radix("map_fused", radix)
+    everys = FUSED_EVERY[radix] if every is None else (every,)
+    if not set(everys) <= {1, 2, 4}:
+        raise ValueError(f"map_fused takes checkpoint strides 1, 2 or 4, not {every}")
+    for tile in (WINDOWED_TILES if lanes is None else (lanes,)):
+        for c in everys:
+            smem = fused_smem(l_win, tile, c)
+            if smem <= MAX_SMEM:
+                return WindowedGeometry(tile, 2 * tile, c, smem, -(-n // tile))
+    raise ValueError(f"no tile of {lanes or WINDOWED_TILES} lanes fits L={l_win} at "
+                     f"stride {everys} in {MAX_SMEM} B")
 
 
 def map_fused16_ref(gs_ext, gp_ext, a_init, b_init, t_train: int, l_win: int,

@@ -150,16 +150,16 @@ def inputs(device=None, seed: int = 0):
     return turbo._windowed_inputs(lsa, lp, ts, tp, L, T)[:4] + (T, L, B, K // L)
 
 
-def sass_counts(lib: Path, function: str) -> collections.Counter:
+def sass_counts(lib: Path, *patterns: str) -> collections.Counter:
     """Opcode counts of the SASS of the kernels in ``lib`` whose mangled
-    name holds ``function``."""
+    name holds every one of ``patterns``."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
     counts, inside = collections.Counter(), False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = function in line
+            inside = all(p in line for p in patterns)
         elif inside and (m := re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
                                        line)):
             counts[m.group(1)] += 1

@@ -1,10 +1,10 @@
-"""The port on the card: each CUDA half-iteration kernel (map_fused at
-radix 2 and 4, sweep at radix 2 and 4, emit) against its plain torch version
-(atol 1e-3, f32 with the same arithmetic), map_windowed and map_v3 equal to
-their plain version and to each other, the bf16 kernels (map_fused16,
-map_windowed16) equal to their plain versions, turbo_decode at windows of
-512 and 6144 (map_fused16 at 16 and 8 lanes a block) equal to the CPU
-decode, every probe kernel
+"""The port on the card: each CUDA half-iteration kernel (sweep at radix 2
+and 4, emit) against its plain torch version (atol 1e-3, f32 with the same
+arithmetic), map_fused at radix 2 and 4 equal to its plain version,
+map_windowed and map_v3 equal to their plain version and to each other, the
+bf16 kernels (map_fused16, map_windowed16) equal to their plain versions,
+turbo_decode at windows of 512 and 6144 under TURBO_KERNEL v9, bf16, v7 and
+v8 equal to the CPU decode, every probe kernel
 (ops/cuda/probes.py) against its plain version (f32 atol 1e-3, bf16 equal),
 and the PDSCH, TM4 2x2, DL-from-samples and control-channel receivers on
 CUDA against the same receivers on the CPU (identical ids, bits, flags and
@@ -63,8 +63,12 @@ def test_kernel_matches_plain(cuda_device, b, k, l, t):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+# also chip_smoke.py's shapes: a ragged last tile (N = 84), one window
+# (W = 1), L/4 odd (L = 188), L = 512 and L = K = 6144 (8 lanes a block)
 @pytest.mark.parametrize("radix", [2, 4])
-@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16)])
+@pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16), (3, 5824, 208, 32),
+                                     (3, 40, 40, 32), (2, 6016, 188, 32), (4, 1024, 512, 32),
+                                     (2, 6144, 6144, 32)])
 def test_map_fused_matches_plain(cuda_device, b, k, l, t, radix):
     args = _inputs(cuda_device, b, k, l, t)
     before = turbo_map.launches["map_fused"]
@@ -72,7 +76,7 @@ def test_map_fused_matches_plain(cuda_device, b, k, l, t, radix):
     torch.cuda.synchronize()
     assert turbo_map.launches["map_fused"] == before + 1
     want = turbo_map.map_fused_ref(*args, radix=radix)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.parametrize("radix", [2, 4])
@@ -110,8 +114,10 @@ def test_map_fused16_equals_plain(cuda_device, b, k, l, t):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+# also L = 178 (100 PRB MCS 23), 512, and the full recursion at K = 6144
 @pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (8, 424, 106, 32),
-                                     (4, 512, 64, 31), (2, 40, 40, 0)])
+                                     (4, 512, 64, 31), (2, 40, 40, 0), (8, 5696, 178, 32),
+                                     (4, 1024, 512, 32), (2, 6144, 6144, 0)])
 def test_map_windowed16_equals_plain(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
     before = turbo_map.launches["map_windowed16"]
@@ -136,21 +142,28 @@ def test_map_v3_matches_plain_and_turbo_map(cuda_device, b, k, l, t):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
-# windows above 320 on the default route: 512 (L = 512, 32 lanes a block) and
-# 6144 (L = K, 8 lanes a block), against the same decode on the CPU (the
-# plain version, bf16 in both)
+# windows above 320: 512 (L = 512) and 6144 (L = K, the narrowest tiles),
+# under the default route (v9, map_fused16) and the routes of the other
+# shared-memory kernels (bf16: map_windowed16, v7 and v8: map_fused), against
+# the same decode on the CPU (the plain version); each launches only its
+# route's kernel, once a half-iteration
+TURBO_KERNELS = {"v9": "map_fused16", "bf16": "map_windowed16", "v7": "map_fused",
+                 "v8": "map_fused"}
+
+
+@pytest.mark.parametrize("kernel", list(TURBO_KERNELS))
 @pytest.mark.parametrize("window", [512, 6144])
-def test_turbo_decode_wide_windows_match_cpu(cuda_device, window, monkeypatch):
-    monkeypatch.delenv("TURBO_KERNEL", raising=False)
+def test_turbo_decode_wide_windows_match_cpu(cuda_device, window, kernel, monkeypatch):
+    monkeypatch.setenv("TURBO_KERNEL", kernel)
     rng = np.random.default_rng(window)
     bits = rng.integers(0, 2, size=(2, 6144)).astype(np.int8)
     d = turbo.turbo_encode(torch.as_tensor(bits)).numpy().astype(np.float32)
     llr = (2 * d - 1) * 2 + rng.standard_normal(d.shape).astype(np.float32)
-    before = turbo_map.launches["map_fused16"]
+    turbo_map.launches.clear()
     h_g, a_g = turbo.turbo_decode(torch.as_tensor(llr, device=cuda_device), n_iter=2,
                                   window=window)
     torch.cuda.synchronize()
-    assert turbo_map.launches["map_fused16"] == before + 4
+    assert dict(turbo_map.launches) == {TURBO_KERNELS[kernel]: 4}
     h_c, a_c = turbo.turbo_decode(torch.as_tensor(llr), n_iter=2, window=window)
     np.testing.assert_array_equal(a_g.cpu().numpy(), a_c.numpy())
     np.testing.assert_array_equal(h_g.cpu().numpy(), bits)

@@ -12,7 +12,7 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "ops.cuda.probes", "tools.turbo_probe2", "tools.turbo_probe3", "tools.turbo_probe6",
             "tools.turbo_probe7", "utils.bits", "ops.convcode", "models.regs", "models.phich",
             "models.pbch", "models.pdcch", "models.dci", "models.ra", "tools.fused16_split",
-            "tools.windowed_split")
+            "tools.windowed_split", "tools.fused_split")
 
 _CHECK = """
 import importlib, pkgutil, sys

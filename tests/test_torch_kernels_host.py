@@ -24,10 +24,11 @@ and ``__hadd``/``__hsub`` (and their pairwise ``2`` forms) add or subtract
 in float and round to bf16 (round to nearest even) after every op,
 which is what the card's bf16 instructions and torch's bf16 ops compute.
 
-Tolerance: atol 1e-3 for the f32 kernels, as on the card (the same
-arithmetic in the same order; in practice the results are identical); the
-bf16 kernels and the v3 kernel must equal their plain versions exactly.
-Skips without a host C++ compiler.
+Tolerance: atol 1e-3 for the sweep and emission kernels and the f32
+probes, as on the card (the same arithmetic in the same order; in practice
+the results are identical); every other half-iteration kernel, f32 and bf16,
+and the bf16 probes must equal their plain versions exactly.  Skips without
+a host C++ compiler.
 """
 
 import ctypes
@@ -43,7 +44,7 @@ from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import probes
 from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 from srsran_4g_tpu_torch.ops.cuda.build import CSRC
-from srsran_4g_tpu_torch.tools import fused16_split, windowed_split
+from srsran_4g_tpu_torch.tools import fused16_split, fused_split, windowed_split
 
 torch.set_num_threads(2)
 
@@ -252,8 +253,8 @@ _EXTERN_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\[\];")
 
 # C entry -> (source, pointer args, int args), as ops/cuda/turbo_map.py binds them
 _ENTRIES = {"turbo_map_windowed": ("turbo_windowed", 5, 8),
-            "turbo_map_windowed16": ("turbo_map", 6, 5),
-            "turbo_map_fused": ("turbo_fused", 7, 6),
+            "turbo_map_windowed16": ("turbo_windowed", 5, 8),
+            "turbo_map_fused": ("turbo_fused", 5, 9),
             "turbo_map_fused16": ("turbo_fused16", 5, 7),
             "turbo_sweep": ("turbo_sweep", 6, 6),
             "turbo_emit": ("turbo_emit", 5, 2),
@@ -317,6 +318,7 @@ def host_kernels(tmp_path_factory):
         fns[symbol] = fn
     # the shared-memory bytes each entry checks a block's against
     for symbol, name, n_int in (("turbo_windowed_smem", "turbo_windowed", 4),
+                                ("turbo_fused_smem", "turbo_fused", 3),
                                 ("turbo_fused16_smem", "turbo_fused16", 2)):
         fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
         fn.argtypes = [ctypes.c_int] * n_int
@@ -350,12 +352,20 @@ def _close(got, want):
 SHAPES = [(3, 256, 64, 16), (3, 424, 106, 32), (2, 512, 64, 31), (2, 40, 40, 0)]
 
 
+# turbo_windowed.cu's entries: (chains a thread, metric bytes, plain version)
+_WINDOWED = {"turbo_map_windowed": (1, 32, tm.map_windowed_ref),
+             "turbo_map_v3": (2, 32, tm.map_v3_ref),
+             "turbo_map_windowed16": (1, 16, tm.map_windowed16_ref)}
+
+
 def _windowed(host_kernels, entry, args, **force):
-    """``turbo_windowed.cu``'s entry (map_windowed or map_v3) at the
-    geometry ``windowed_geometry`` gives (``force``: its every/lanes)."""
+    """``turbo_windowed.cu``'s entry (map_windowed, map_v3 or
+    map_windowed16) at the geometry ``windowed_geometry`` gives (``force``:
+    its every/lanes)."""
     gs, gp, a0, b0, t, l, nof_b, nof_w = args
     n = gs.shape[1]
-    geo = tm.windowed_geometry(n, l, t, 2 if entry == "turbo_map_v3" else 1, **force)
+    chains, metric_bytes, _ = _WINDOWED[entry]
+    geo = tm.windowed_geometry(n, l, t, chains, metric_bytes=metric_bytes, **force)
     out = gs.new_empty((l, n))
     _run(host_kernels[entry], gs, gp, a0, b0, out, n, t, l, nof_b, nof_w, geo.lanes,
          geo.every, geo.smem_bytes)
@@ -375,40 +385,41 @@ def test_turbo_map_source_matches_plain(host_kernels, b, k, l, t):
 WINDOWED_SHAPES = [(5, 512, 64, 16), (3, 189, 63, 16), (2, 424, 106, 31), (3, 40, 40, 0)]
 # (entry, checkpoint stride c) for every stride the geometry can pick
 WINDOWED_STRIDES = [("turbo_map_windowed", c) for c in (1, 2, 4, 8)] + [
-    ("turbo_map_v3", c) for c in (1, 2, 4)]
+    ("turbo_map_v3", c) for c in (1, 2, 4)] + [
+    ("turbo_map_windowed16", c) for c in (1, 2, 4, 8)]
 
 
 @pytest.mark.parametrize("entry,every", WINDOWED_STRIDES)
 @pytest.mark.parametrize("b,k,l,t", WINDOWED_SHAPES)
 def test_turbo_windowed_sources_equal_plain(host_kernels, entry, every, b, k, l, t):
     args = _inputs(b, k, l, t)
-    _equal(_windowed(host_kernels, entry, args, every=every), tm.map_windowed_ref(*args))
+    _equal(_windowed(host_kernels, entry, args, every=every), _WINDOWED[entry][2](*args))
 
 
 # the narrow tiles the geometry picks at large L: 8 lanes (five blocks) and
 # one lane a block
 @pytest.mark.parametrize("lanes", [8, 1])
-@pytest.mark.parametrize("entry", ["turbo_map_windowed", "turbo_map_v3"])
+@pytest.mark.parametrize("entry", ["turbo_map_windowed", "turbo_map_v3", "turbo_map_windowed16"])
 def test_turbo_windowed_narrow_tiles_equal_plain(host_kernels, entry, lanes):
     args = _inputs(*WINDOWED_SHAPES[0])
-    _equal(_windowed(host_kernels, entry, args, lanes=lanes), tm.map_windowed_ref(*args))
+    _equal(_windowed(host_kernels, entry, args, lanes=lanes), _WINDOWED[entry][2](*args))
 
 
 def test_windowed_geometry_fits_and_covers_every_window(host_kernels):
-    """For every L from 1 to 6,144 and T in {0, 31, 32}, both entries'
+    """For every L from 1 to 6,144 and T in {0, 31, 32}, the three entries'
     geometry fits an H100 block, agrees with the bytes the entry checks, is
     taken by the entry (asked at N = 0), and its tiles cover every lane
     once."""
     need = host_kernels["turbo_windowed_smem"]
-    for entry, chains in (("turbo_map_windowed", 1), ("turbo_map_v3", 2)):
+    for kind, (entry, (chains, metric_bytes, _)) in enumerate(_WINDOWED.items()):
         fn = host_kernels[entry]
         for l in range(1, 6145):
             for t in (0, 31, 32):
                 for n in (1, 37, 46592):
-                    geo = tm.windowed_geometry(n, l, t, chains)
+                    geo = tm.windowed_geometry(n, l, t, chains, metric_bytes=metric_bytes)
                     assert geo.grid * geo.lanes >= n > (geo.grid - 1) * geo.lanes
                 assert geo.smem_bytes <= 232448 and geo.threads == 2 * geo.lanes // chains
-                assert need(l, geo.lanes, geo.every, chains - 1) == geo.smem_bytes
+                assert need(l, geo.lanes, geo.every, kind) == geo.smem_bytes
                 assert fn(None, None, None, None, None, 0, t, l, 1, 1, geo.lanes, geo.every,
                           geo.smem_bytes, None) == 0
             # too little shared memory, a tile or stride the kernel does not take
@@ -418,17 +429,84 @@ def test_windowed_geometry_fits_and_covers_every_window(host_kernels):
             assert fn(None, None, None, None, None, 0, 32, l, 1, 1, 1, 3, 232448, None) != 0
     assert tm.windowed_geometry(1664, 6144, 32)[:3] == (8, 16, 8)  # c = 8, 8 lanes
     assert tm.windowed_geometry(46592, 208, 32)[:3] == (32, 64, 4)
+    assert tm.windowed_geometry(46592, 208, 32, metric_bytes=16)[1:4] == (64, 4, 30720)
+
+
+def _fused(fn, args, radix, **force):
+    """``turbo_fused.cu``'s entry at the geometry ``fused_geometry`` gives
+    (``force``: its every/lanes)."""
+    gs, gp, a0, b0, t, l, nof_b, nof_w = args
+    n = gs.shape[1]
+    geo = tm.fused_geometry(n, l, radix, **force)
+    out = gs.new_empty((l, n))
+    _run(fn, gs, gp, a0, b0, out, n, t, l, nof_b, nof_w, radix, geo.lanes, geo.every,
+         geo.smem_bytes)
+    return out
 
 
 @pytest.mark.parametrize("radix", [2, 4])
 def test_turbo_fused_source_matches_plain(host_kernels, radix):
-    b, k, l, t = SHAPES[0]
+    args = _inputs(*SHAPES[0])
+    _equal(_fused(host_kernels["turbo_map_fused"], args, radix),
+           tm.map_fused_ref(*args, radix=radix))
+
+
+# a ragged last tile (N = 84), one window (W = 1, L = 40: L/4 = 10 pairs, a
+# partial chunk at c = 4), L/4 odd (L = 188: partial chunks at c = 2 and 4),
+# and T/2 odd (a partial training chunk)
+FUSED_SHAPES = [(3, 5824, 208, 32), (3, 40, 40, 32), (2, 6016, 188, 32), (2, 512, 64, 30)]
+
+
+@pytest.mark.parametrize("every", [1, 2, 4])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("b,k,l,t", FUSED_SHAPES)
+def test_turbo_fused_strides_equal_plain(host_kernels, b, k, l, t, radix, every):
     args = _inputs(b, k, l, t)
-    gs, n = args[0], args[0].shape[1]
-    out = gs.new_empty((l, n))
-    stores = [gs.new_empty((l // 4, 8, n)) for _ in range(2)]
-    _run(host_kernels["turbo_map_fused"], *args[:4], *stores, out, n, t, l, b, k // l, radix)
-    _close(out, tm.map_fused_ref(*args, radix=radix))
+    _equal(_fused(host_kernels["turbo_map_fused"], args, radix, every=every),
+           tm.map_fused_ref(*args, radix=radix))
+
+
+# the narrow tile the geometry picks at a large window (L = 3,584: 8 lanes a
+# block), and one lane a block
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("shape,lanes", [((2, 7168, 3584, 32), None), ((5, 512, 64, 16), 1)])
+def test_turbo_fused_narrow_tiles_equal_plain(host_kernels, shape, lanes, radix):
+    args = _inputs(*shape)
+    force = {} if lanes is None else {"lanes": lanes}
+    _equal(_fused(host_kernels["turbo_map_fused"], args, radix, **force),
+           tm.map_fused_ref(*args, radix=radix))
+
+
+def test_fused_geometry_fits_every_window(host_kernels):
+    """For every L % 4 == 0 from 4 to 6,144 and either radix map_fused's
+    geometry fits an H100 block, agrees with the bytes the entry checks, is
+    taken by the entry (asked at N = 0, T = 0 and 32), and its tiles cover
+    every lane once."""
+    need, fn = host_kernels["turbo_fused_smem"], host_kernels["turbo_map_fused"]
+    for radix in (2, 4):
+        for l in range(4, 6145, 4):
+            for n in (1, 37, 46592):
+                geo = tm.fused_geometry(n, l, radix)
+                assert geo.grid * geo.lanes >= n > (geo.grid - 1) * geo.lanes
+            assert geo.smem_bytes <= 232448 and geo.threads == 2 * geo.lanes
+            assert need(l, geo.lanes, geo.every) == geo.smem_bytes
+            for t in (0, 32):
+                assert fn(None, None, None, None, None, 0, t, l, 1, 1, radix, geo.lanes,
+                          geo.every, geo.smem_bytes, None) == 0
+            assert fn(None, None, None, None, None, 0, 32, l, 1, 1, radix, geo.lanes,
+                      geo.every, geo.smem_bytes - 16, None) != 0
+    # odd T, L % 4 != 0, a radix, tile or stride the kernel does not take
+    for bad in ((31, 208, 2, 32, 4), (32, 206, 2, 32, 4), (32, 208, 3, 32, 4),
+                (32, 208, 2, 64, 4), (32, 208, 2, 32, 8)):
+        t, l, radix, tile, every = bad
+        assert fn(None, None, None, None, None, 0, t, l, 1, 1, radix, tile, every, 232448,
+                  None) != 0
+    assert [tm.fused_geometry(1, l, 2).lanes for l in (208, 1776, 1780, 3600, 3604, 6144)] == [
+        32, 32, 16, 16, 8, 8]
+    assert [tm.fused_geometry(1, l, 4)[0:3:2] for l in (888, 892, 6144)] == [
+        (32, 2), (32, 4), (8, 4)]
+    assert tm.fused_geometry(46592, 208, 2)[1:4] == (64, 4, 30720)
+    assert tm.fused_geometry(46592, 208, 4)[1:4] == (64, 2, 57344)
 
 
 @pytest.mark.parametrize("radix", [2, 4])
@@ -450,14 +528,11 @@ def _equal(got, want):
     np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
 
 
+# map_windowed16's kernel (turbo_windowed.cu) at its default geometry
 @pytest.mark.parametrize("b,k,l,t", SHAPES)
 def test_turbo_map16_source_matches_plain(host_kernels, b, k, l, t):
     args = _inputs(b, k, l, t)
-    gs, n = args[0], args[0].shape[1]
-    out = gs.new_empty((l, n))
-    astore = gs.new_empty((l, 8, n), dtype=torch.bfloat16)
-    _run(host_kernels["turbo_map_windowed16"], *args[:4], astore, out, n, t, l, b, k // l)
-    _equal(out, tm.map_windowed16_ref(*args))
+    _equal(_windowed(host_kernels, "turbo_map_windowed16", args), tm.map_windowed16_ref(*args))
 
 
 # five tiles of 32 lanes (N = 160), a ragged last tile (N = 84), one window
@@ -526,22 +601,22 @@ def test_fused16_variants_match_plain_on_the_host(tmp_path, variant):
 def test_windowed_split_variants_build_for_the_host(host_kernels, tmp_path):
     """Every build of turbo_windowed.cu that tools/windowed_split times still
     compiles (host build), and every variant whose outputs are LLRs computes
-    the kernel's function, in both entries, at its own geometry."""
+    the kernel's function, in all three entries, at its own geometry."""
     cxx = _host_dir(tmp_path)
     names = {windowed_split.build_name(name): name for name in windowed_split.VARIANTS
              if windowed_split.build_name(name)}
     _wait({lib: _host_build(cxx, tmp_path, "turbo_windowed", lib,
                             windowed_split.variant_flags(name)) for lib, name in names.items()})
     args = _inputs(*WINDOWED_SHAPES[0])
-    want = tm.map_windowed_ref(*args)
     gs, gp, a0, b0, t, l, nof_b, nof_w = args
     n = gs.shape[1]
     for name in windowed_split.VARIANTS:
         if name in windowed_split.NOT_LLRS:
             continue
-        for wrapper, (symbol, _) in windowed_split.ENTRIES.items():
+        for wrapper, (symbol, *_) in windowed_split.ENTRIES.items():
             if not windowed_split.applies(name, wrapper):
                 continue
+            want = _WINDOWED[symbol][2](*args)
             lib = windowed_split.build_name(name)
             if lib is None:
                 fn = host_kernels[symbol]
@@ -552,6 +627,38 @@ def test_windowed_split_variants_build_for_the_host(host_kernels, tmp_path):
             geo = windowed_split.variant_geometry(name, wrapper, n, l, t)
             out = gs.new_empty((l, n))
             _run(fn, gs, gp, a0, b0, out, n, t, l, nof_b, nof_w, geo.lanes, geo.every,
+                 geo.smem_bytes)
+            _equal(out, want)
+
+
+def test_fused_split_variants_build_for_the_host(host_kernels, tmp_path):
+    """Every build of turbo_fused.cu that tools/fused_split times still
+    compiles (host build), and every variant whose outputs are LLRs computes
+    the kernel's function, at both radices, at its own geometry (N = 84: a
+    ragged last tile at 32 and 16 lanes)."""
+    cxx = _host_dir(tmp_path)
+    names = {fused_split.build_name(name): name for name in fused_split.VARIANTS
+             if fused_split.build_name(name)}
+    _wait({lib: _host_build(cxx, tmp_path, "turbo_fused", lib, fused_split.variant_flags(name))
+           for lib, name in names.items()})
+    args = _inputs(3, 5824, 208, 32)
+    gs, gp, a0, b0, t, l, nof_b, nof_w = args
+    n = gs.shape[1]
+    for radix in (2, 4):
+        want = tm.map_fused_ref(*args, radix=radix)
+        for name in fused_split.VARIANTS:
+            if name in fused_split.NOT_LLRS:
+                continue
+            lib = fused_split.build_name(name)
+            if lib is None:
+                fn = host_kernels["turbo_map_fused"]
+            else:
+                fn = getattr(ctypes.CDLL(str(tmp_path / f"lib{lib}.so")), "turbo_map_fused")
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            geo = fused_split.variant_geometry(name, n, l, radix)
+            out = gs.new_empty((l, n))
+            _run(fn, gs, gp, a0, b0, out, n, t, l, nof_b, nof_w, radix, geo.lanes, geo.every,
                  geo.smem_bytes)
             _equal(out, want)
 
