@@ -42,15 +42,35 @@ read just after:
   searches the cell, estimates the channel, decodes PCFICH, PBCH, PHICH,
   blind-searches the PDCCH for both RNTIs and one that was not sent,
   unpacks the grant and decodes the PDSCH it names, every field checked
-  exactly on every capture.
+  exactly on every capture;
+- the eNB uplink receiver: 128 subframes of a 100 PRB cell (301, subframe
+  2) at 30 dB carrying a PUSCH on PRB 2-97 (64QAM, TBS 71112, 12 code
+  blocks of K=5952 at L=192, with 2 HARQ-ACK and 20 long-CQI bits) and four
+  PUCCH UEs on PRB 0-1 and 98-99 (formats 1a, 2, 2b and 3), every data, ACK,
+  CQI and PUCCH bit checked; SRS sounding over the 96 PRB through a two-tap
+  channel, its estimate within a stated normalised MSE; PRACH at symbol_sz
+  2048, 128 captures with one preamble each (the sent one detected and no
+  other, its delay as the detector reads it) and 32 of noise alone (nothing
+  detected); the PUSCH decode timed and each stage profiled;
+- PMCH: 128 MBSFN subframes of 100 PRB, area 1, 64QAM, TBS 46888 (8 code
+  blocks of K=5888 at L=184) at 30 dB, decoded exactly;
+- the UE around the downlink: a 40-subframe FDD stream of cell 301 at 100
+  PRB with a random lead, a CFO and a neighbour cell 6 dB weaker on its own
+  timing; ``UeSync`` FIND then TRACK on every subframe, the MIB, CRS
+  measurements (RSRP, SNR against the SINR put in, CFO), the neighbour
+  search, FDD/TDD detection, resampling to 23.04 Msps (polyphase and FFT,
+  in-band EVM, a search at symbol_sz 1536) and back, AGC from -20 dB and CFR
+  (PAPR drop, in-band EVM), with the per-subframe tracking time.
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
 ``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
 exactly equal to their plain versions (max |diff| 0), also at five tiles, a
 ragged last tile, one window, L/4 odd, L = 178, 512 and 6144 (the full
 recursion at T = 0 for the single-chain kernels, T = 32 for the fused
-ones); each kernel's launch geometry is logged beside its build's registers
-and spills, and given in the kernels line.  The decodes under ``bf16``,
+ones), and ``map_fused16`` also at the uplink's and the PMCH's shapes
+(L = 192 and 184, timed, their launches per decode in its entry of the
+kernels line); each kernel's launch geometry is logged beside its build's
+registers and spills, and given in the kernels line.  The decodes under ``bf16``,
 ``v7`` and ``v8`` are profiled for their device time.
 
 Output (stdout): the card's name and power limit, the build and check
@@ -163,6 +183,43 @@ EXACT = ("turbo_map", "map_windowed16", "map_v3", "map_fused16", "map_fused_r2",
 # the default route at L ≡ 2 (mod 4): 100 PRB, MCS 23 (I_TBS 21, 64QAM), TBS
 # 51024, 9 code blocks of K = 5696, window L = 178
 MCS23_TBS, MCS23_K, MCS23_L = 51024, 5696, 178
+# the eNB uplink receiver: 100 PRB, cell 301, subframe 2; the PUSCH on PRB
+# 2-97 (96 PRB), 64QAM, I_TBS 26 (TBS 71112: 12 code blocks of K = 5952,
+# window L = 192, map_fused16), UCI with 2 ACK bits and 20 CQI bits (long
+# CQI: CRC8 + tail-biting Viterbi); four PUCCH UEs on PRB 0-1 and 98-99, each
+# (PRB, slot) used once: format 1a (m = 2), 2 with 11 CQI bits (m = 0), 2b
+# with 11 CQI and 2 ACK bits (m = 1), 3 with 11 ACK bits (n_pucch 15, m = 3)
+UL_CELL_ID, UL_SUBFRAME = 301, 2
+UL_PRB_START, UL_NOF_PRB = 2, 96
+UL_TBS, UL_CBS, UL_K, UL_L = 71112, 12, 5952, 192
+UL_UCI = dict(o_ack=2, o_cqi=20)
+UL_PUCCH = {"1a": dict(n_pucch=0, n_rb_2=2), "2": dict(n_pucch=0, rnti=0x0047),
+            "2b": dict(n_pucch=0, n_rb_2=1, rnti=0x0048), "3": dict(n_pucch=15, rnti=0x0049)}
+# SRS over the 96 PRB through two taps (the second SRS_TAP_DELAY samples of
+# 2048 later, -10 dB): the estimate's normalised MSE against the channel
+# applied; at 30 dB the 3-tap smoother leaves 0.375 of the 1e-3 noise
+# variance, ~4e-4
+SRS_TAP_DELAY, SRS_NMSE_MAX = 5, 1e-3
+# PRACH at symbol_sz 2048, root 128 and zero-correlation zone 5 (N_cs = 26,
+# 32 shifts a root: two roots for the 64 preambles), delays of 0..12·60
+# samples (the zone is 63 detector bins of 12 samples), PRACH_NOISE captures
+# of noise alone
+PRACH_ROOT, PRACH_ZCZ, PRACH_NOISE, PRACH_MAX_BIN = 128, 5, 32, 60
+# PMCH: 100 PRB, area 1, subframe 1, 64QAM, I_TBS 20 (TBS 46888, code rate
+# 0.77: 8 code blocks of K = 5888, window L = 184, map_fused16)
+PMCH_TBS, PMCH_CBS, PMCH_K, PMCH_L = 46888, 8, 5888, 184
+# the UE around the downlink: a 40-subframe FDD stream of cell 301 at 100
+# PRB after a random lead, a neighbour (cell 152, another N_ID_2) 6 dB weaker
+# with its own timing, a CFO inside +-DL_CFO; the bounds of its checks
+SYNC_CELL_ID, SYNC_NBR_ID, SYNC_NBR_DB = 301, 152, 6.0
+SYNC_SF, SYNC_LEAD_MAX = 40, 2000
+SYNC_CFO_TOL = 0.005       # subcarriers, the tracked CFO against the one put in
+SYNC_CFO_HZ_TOL = 50.0     # tracked CFO + measure_cell's residual, against the one put in
+SYNC_RSRP_TOL_DB = 0.5     # the serving CRS is sent at 0 dB
+SYNC_SNR_TOL_DB = 1.0    # measure_cell's SNR, against the SINR put in on the CRS REs
+SYNC_EVM_POLY_DB, SYNC_EVM_FFT_DB = -20.0, -40.0
+AGC_FRAMES, AGC_TOL_DB = 20, 1.5
+CFR_DROP_DB, CFR_EVM_DB = 2.0, -15.0
 
 
 def log(msg: str) -> None:
@@ -329,6 +386,13 @@ def check_kernels(dev, gen, b, k) -> dict:
                     out[r][key] = max(out[r][key], res[key])
     for r, res in out["mcs23"].items():
         out[r]["max_abs_err"] = max(out[r]["max_abs_err"], res["max_abs_err"])
+    # the default kernel at the uplink's and the PMCH's shapes (timed)
+    for key, (cbs, k_cb, l_win) in (("ul_path", (UL_CBS, UL_K, UL_L)),
+                                    ("mbsfn_path", (PMCH_CBS, PMCH_K, PMCH_L))):
+        out[key] = check_kernel("map_fused16", gamma_inputs(dev, gen, BATCH * cbs, k_cb, l_win,
+                                                            32), time_it=True)
+        out["map_fused16"]["max_abs_err"] = max(out["map_fused16"]["max_abs_err"],
+                                                out[key]["max_abs_err"])
     return out
 
 
@@ -1066,6 +1130,548 @@ def control_path(dev, gen, card: str) -> dict[str, int]:
     return counts
 
 
+# ---- the eNB uplink receiver, PMCH and the UE around the downlink ---------------
+
+
+def ul_cfgs():
+    """The uplink phase's configs: the 100 PRB cell, the PUSCH of 96 PRB with
+    UCI, the four PUCCH UEs at the band edges and the SRS."""
+    from srsran_4g_tpu_torch.models import grid, pucch, pusch, srs, uci
+
+    cell = grid.CellConfig(nof_prb=100, cell_id=UL_CELL_ID, cfi=1)
+    pcfg = pusch.PuschConfig(cell=cell, rnti=0x0046, subframe=UL_SUBFRAME, mod="64qam",
+                             tbs=UL_TBS, prb_start=UL_PRB_START, nof_prb_alloc=UL_NOF_PRB,
+                             uci=uci.UciCfg(**UL_UCI))
+    pucchs = {name: pucch.PucchConfig(cell=cell, subframe=UL_SUBFRAME, **kw)
+              for name, kw in UL_PUCCH.items()}
+    scfg = srs.SrsConfig(cell=cell, n_prb_srs=UL_NOF_PRB, prb_offset=UL_PRB_START)
+    return pcfg, pucchs, scfg
+
+
+def pucch_prbs(cfg, name: str) -> tuple[int, int]:
+    from srsran_4g_tpu_torch.models import pucch
+
+    prb = pucch.pucch3_prb if name == "3" else pucch.pucch_prb
+    return tuple(prb(cfg, 2 * cfg.subframe + s) for s in (0, 1))
+
+
+def ul_traffic(dev, gen, batch: int):
+    """``batch`` UL subframes of the 100 PRB cell: the PUSCH (random TBs,
+    ACK and CQI bits) and the four PUCCH UEs (format 1a, 2 with 11 CQI bits,
+    2b with 11 CQI and 2 ACK bits, 3 with 11 ACK bits), summed into one grid
+    each, then AWGN at SNR_DB.  Returns (rx grid, what was sent)."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import pucch, pusch
+
+    pcfg, pucchs, _ = ul_cfgs()
+
+    def bits(n):
+        return torch.randint(0, 2, (batch, n), generator=gen, device=dev, dtype=torch.int8)
+
+    sent = dict(tb=bits(UL_TBS), ack=bits(UL_UCI["o_ack"]), cqi=bits(UL_UCI["o_cqi"]),
+                f1a=bits(1), f2_cqi=bits(11), f2b_cqi=bits(11), f2b_ack=bits(2), f3=bits(11))
+    g = pusch.encode(pcfg, sent["tb"], cqi_bits=sent["cqi"], ack_bits=sent["ack"])
+    g = g + pucch.encode_format1(pucchs["1a"], sent["f1a"])
+    g = g + pucch.encode_format2(pucchs["2"], sent["f2_cqi"])
+    g = g + pucch.encode_format2(pucchs["2b"], sent["f2b_cqi"], sent["f2b_ack"])
+    g = g + pucch.encode_format3(pucchs["3"], sent["f3"])
+    return awgn.awgn(g, awgn.snr_to_noise_var(SNR_DB, device=dev), generator=gen), sent
+
+
+def ul_receive(rx):
+    """The eNB's uplink receive of one batch: the PUSCH with its UCI, then
+    the four PUCCH UEs."""
+    from srsran_4g_tpu_torch.models import pucch, pusch
+
+    pcfg, pucchs, _ = ul_cfgs()
+    return dict(pusch=pusch.decode(pcfg, rx, n_iter=N_ITER),
+                f1a=pucch.decode_format1(pucchs["1a"], rx, 1),
+                f2=pucch.decode_format2(pucchs["2"], rx, 11),
+                f2b=pucch.decode_format2(pucchs["2b"], rx, 11, nof_ack=2),
+                f3=pucch.decode_format3(pucchs["3"], rx, 11))
+
+
+def check_ul(out, sent, what: str) -> dict[str, bool]:
+    p = out["pusch"]
+    checks = {"PUSCH crc_ok": bool(p["crc_ok"].all()),
+              "PUSCH bits": torch.equal(p["bits"], sent["tb"]),
+              "ACK bits": torch.equal(p["ack_bits"], sent["ack"]),
+              "CQI crc_ok": bool(p["cqi_ok"].all()),
+              "CQI bits": torch.equal(p["cqi_bits"], sent["cqi"]),
+              "PUCCH 1a bits": torch.equal(out["f1a"]["bits"], sent["f1a"]),
+              "PUCCH 1a detected": bool(out["f1a"]["detected"].all()),
+              "PUCCH 2 CQI bits": torch.equal(out["f2"]["bits"], sent["f2_cqi"]),
+              "PUCCH 2b CQI bits": torch.equal(out["f2b"]["bits"], sent["f2b_cqi"]),
+              "PUCCH 2b ACK bits": torch.equal(out["f2b"]["ack_bits"], sent["f2b_ack"]),
+              "PUCCH 3 bits": torch.equal(out["f3"]["bits"], sent["f3"])}
+    if not all(checks.values()):
+        raise AssertionError(f"{what}: {checks}")
+    return checks
+
+
+def srs_sounding(dev, gen, batch: int) -> tuple[float, object]:
+    """``batch`` SRS grids over UL_NOF_PRB PRB through a two-tap channel of
+    random complex gains per capture (a second tap SRS_TAP_DELAY samples of
+    2048 later, -10 dB) and AWGN at SNR_DB; the estimate against the channel
+    applied on the sounded subcarriers.  Returns (normalised MSE, the
+    estimate call)."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import srs
+
+    _, _, scfg = ul_cfgs()
+    cell = scfg.cell
+    g = srs.put_srs(scfg, torch.zeros((batch, cell.nsymb, cell.nre), dtype=torch.complex64,
+                                      device=dev), UL_SUBFRAME)
+    taps = torch.randn((batch, 2), generator=gen, device=dev, dtype=torch.complex64)
+    taps[:, 1] *= 10 ** (-10 / 20)
+    k = torch.arange(cell.nre, device=dev)
+    ramp = torch.polar(torch.ones(cell.nre, device=dev), -2 * np.pi * SRS_TAP_DELAY * k / 2048)
+    chan = taps[:, :1] + taps[:, 1:] * ramp  # (B, nre)
+    rx = awgn.awgn(g * chan[:, None, :], awgn.snr_to_noise_var(SNR_DB, device=dev),
+                   generator=gen)
+
+    def estimate():
+        return srs.estimate_srs(scfg, rx, UL_SUBFRAME)
+
+    est = estimate()
+    ks = torch.as_tensor(srs.srs_subcarriers(scfg), device=dev)
+    want = chan[:, ks]
+    nmse = float(((est["h"] - want).abs() ** 2).mean() / (want.abs() ** 2).mean())
+    if not (est["h"].shape == want.shape and torch.isfinite(est["h"]).all()):
+        raise AssertionError("SRS estimate: not finite or of the wrong shape")
+    return nmse, estimate
+
+
+def prach_captures(dev, gen, cfg, n_sent: int, n_noise: int):
+    """``n_sent`` PRACH captures of cp+seq samples, each with one preamble at
+    a seeded index and a seeded integer delay of 0..12·PRACH_MAX_BIN samples
+    (inside its zero-correlation zone), then ``n_noise`` captures of noise
+    alone; AWGN at SNR_DB against the preamble's mean sample power.  Returns
+    (captures, indices, delays)."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import prach
+
+    n = cfg.cp_len + cfg.seq_len_samples
+    pre = torch.stack([prach.generate(cfg, i, device=dev) for i in range(64)])  # (64, n)
+    idx = torch.randint(0, 64, (n_sent,), generator=gen, device=dev)
+    delay = torch.randint(0, 12 * PRACH_MAX_BIN + 1, (n_sent,), generator=gen, device=dev)
+    t = torch.arange(n, device=dev) - delay[:, None]
+    cap = torch.where(t >= 0, pre[idx[:, None], t.clamp(min=0)], 0)
+    cap = torch.cat([cap, cap.new_zeros((n_noise, n))])
+    power = float((pre.abs() ** 2).mean())
+    return (awgn.awgn(cap, awgn.snr_to_noise_var(SNR_DB, signal_power=power, device=dev),
+                      generator=gen), idx, delay)
+
+
+def prach_expected_delay(cfg, idx: torch.Tensor, delay: torch.Tensor):
+    """The delay the detector reads for a noise-free capture: its windows
+    start at rounded IFFT bins, and a delay moves the peak by delay·2048/seq
+    bins, so the reading is seq/2048·(the nearest bin to the peak − the
+    window's start).  Returns (expected reading, whether the peak sits
+    within 0.1 bin of the midpoint of two bins, where noise picks either)."""
+    from srsran_4g_tpu_torch.models import prach
+
+    scale = prach.NFFT_DETECT / prach.N_ZC
+    step = cfg.seq_len_samples / prach.NFFT_DETECT
+    start = torch.as_tensor([((prach.N_ZC - s) % prach.N_ZC) * scale
+                             for _, s in cfg.preamble_plan()], dtype=torch.float64,
+                            device=idx.device)[idx]
+    peak = start + delay.double() / step
+    near_half = ((peak - peak.floor()) - 0.5).abs() < 0.1
+    return (torch.round(peak) - torch.round(start)) * step, near_half
+
+
+def ul_path(dev, gen, card: str) -> dict:
+    """The eNB uplink receiver at 100 PRB, under the default TURBO_KERNEL:
+    BATCH subframes of the PUSCH (96 PRB, 64QAM, TBS 71112, 2 ACK and 20
+    long-CQI bits) and the four PUCCH UEs, every bit checked; SRS sounding
+    within SRS_NMSE_MAX; PRACH at symbol_sz 2048 (BATCH captures with one
+    preamble, PRACH_NOISE captures of noise alone).  Returns map_fused16's
+    ul_path entry for the kernels line."""
+    from srsran_4g_tpu_torch.models import prach, pucch, pusch
+    from srsran_4g_tpu_torch.ops import turbo
+
+    os.environ.pop("TURBO_KERNEL", None)
+    pcfg, pucchs, _ = ul_cfgs()
+    grp = pcfg.plan.groups[0]
+    l_win = turbo.window_length(grp.K, 208, 32)
+    if ((len(pcfg.plan.groups), grp.count, grp.K, l_win) != (1, UL_CBS, UL_K, UL_L)
+            or turbo.kernel_route("v9", l_win, 32) != "v9"):
+        raise AssertionError(f"PUSCH: segmentation {pcfg.plan}, window {l_win}: not "
+                             f"{UL_CBS} CBs of K={UL_K} at L={UL_L} on the v9 route")
+    occupied = {name: pucch_prbs(c, name) for name, c in pucchs.items()}
+    used = [(prb, s) for prbs in occupied.values() for s, prb in enumerate(prbs)]
+    if len(set(used)) != len(used) or any(UL_PRB_START <= p < UL_PRB_START + UL_NOF_PRB
+                                          for p, _ in used):
+        raise AssertionError(f"PUCCH resources overlap each other or the PUSCH: {occupied}")
+    plan = pcfg.uci_plan
+    t0 = time.perf_counter()
+    rx, sent = ul_traffic(dev, gen, BATCH)
+    torch.cuda.synchronize()
+    log(f"UL path: cell {UL_CELL_ID}, 100 PRB, subframe {UL_SUBFRAME}, batch {BATCH}, "
+        f"{SNR_DB} dB; PUSCH PRB {UL_PRB_START}-{UL_PRB_START + UL_NOF_PRB - 1} 64QAM TBS "
+        f"{UL_TBS} ({grp.count} CBs of K={grp.K}, L={l_win}), UCI {UL_UCI} (Q'_CQI "
+        f"{plan.q_prime_cqi}, Q'_ACK {plan.q_prime_ack}, G_data {plan.g_data}); PUCCH PRBs "
+        f"(slot 0, slot 1) {occupied}; made in {time.perf_counter() - t0:.2f} s (first call)")
+
+    reset_counts()
+    out = ul_receive(rx)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    checks = check_ul(out, sent, "UL path")
+    if {name for name, n in counts.items() if n} != {"map_fused16"}:
+        raise AssertionError(f"the UL path launched {counts}, expected only map_fused16")
+    per_decode = counts["map_fused16"]
+    log(f"UL path: every check exact on {BATCH}/{BATCH} ({', '.join(checks)}); launches "
+        f"{counts}: {per_decode} map_fused16 launches a PUSCH decode")
+
+    nmse, srs_estimate = srs_sounding(dev, gen, BATCH)
+    if not nmse < SRS_NMSE_MAX:
+        raise AssertionError(f"SRS estimate: normalised MSE {nmse} >= {SRS_NMSE_MAX}")
+    log(f"UL path: SRS over {UL_NOF_PRB} PRB, {BATCH} captures through a two-tap channel: "
+        f"normalised MSE of the estimate {nmse:.3e} (< {SRS_NMSE_MAX})")
+
+    pr_cfg = prach.PrachConfig(symbol_sz=2048, root_seq_index=PRACH_ROOT,
+                               zero_corr_zone=PRACH_ZCZ)
+    caps, idx, delay = prach_captures(dev, gen, pr_cfg, BATCH, PRACH_NOISE)
+    det = prach.detect(pr_cfg, caps)
+    want = torch.zeros((BATCH + PRACH_NOISE, 64), dtype=torch.bool, device=dev)
+    want[torch.arange(BATCH, device=dev), idx] = True
+    got_delay = det["delay_samples"][torch.arange(BATCH, device=dev), idx].double()
+    expected, near_half = prach_expected_delay(pr_cfg, idx, delay)
+    err = (got_delay - expected).abs()
+    vs_sent = float((got_delay - delay.double()).abs().max())
+    step = pr_cfg.seq_len_samples / prach.NFFT_DETECT
+    if not torch.equal(det["detected"], want):
+        raise AssertionError(f"PRACH: detections differ from the sent preambles: "
+                             f"{int((det['detected'] != want).sum())} of "
+                             f"{want.numel()} flags")
+    if not (bool((err[~near_half] <= 1).all()) and bool((err[near_half] <= step + 1).all())
+            and vs_sent <= step):
+        raise AssertionError(f"PRACH delays: max error {float(err.max())} samples against the "
+                             f"detector's reading, {vs_sent} against the sent delay")
+    log(f"UL path: PRACH root {PRACH_ROOT}, zero-correlation zone {PRACH_ZCZ} (N_cs "
+        f"{pr_cfg.n_cs}): the sent preamble and only it detected on {BATCH}/{BATCH}, nothing "
+        f"on {PRACH_NOISE} captures of noise; delays within 1 sample of the detector's "
+        f"reading on {int((~near_half).sum())} captures (within one {step:.0f}-sample step on "
+        f"{int(near_half.sum())} whose peak lies within 0.1 bin of a bin midpoint), max "
+        f"|reading - sent delay| {vs_sent:.1f} samples; min sent power "
+        f"{float(det['power'][want].min()):.3f}, max other {float(det['power'][~want].max()):.3f}")
+
+    # ---- timing: the PUSCH decode alone, then each stage's device time -----
+    times = []
+    for _ in range(PATH_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = pusch.decode(pcfg, rx, n_iter=N_ITER)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check_exact(p["crc_ok"], p["bits"], sent["tb"], "PUSCH (timed)")
+    log(f"[{card}] PUSCH decode (96 PRB 64QAM TBS {UL_TBS}, UCI) of {BATCH} subframes: best "
+        f"of {PATH_REPS} {min(times) * 1e3:.2f} ms "
+        f"({', '.join(f'{x * 1e3:.2f}' for x in times)}) = {BATCH / min(times):.1f} "
+        f"subframes/s")
+    profile_window(lambda: pusch.decode(pcfg, rx, n_iter=N_ITER), card,
+                   f"PUSCH decode of {BATCH}", min(times))
+    stages = {"PUCCH 1a": lambda: pucch.decode_format1(pucchs["1a"], rx, 1),
+              "PUCCH 2": lambda: pucch.decode_format2(pucchs["2"], rx, 11),
+              "PUCCH 2b": lambda: pucch.decode_format2(pucchs["2b"], rx, 11, nof_ack=2),
+              "PUCCH 3": lambda: pucch.decode_format3(pucchs["3"], rx, 11),
+              "SRS estimate": srs_estimate,
+              f"PRACH detect of {BATCH + PRACH_NOISE}": lambda: prach.detect(pr_cfg, caps)}
+    for name, fn in stages.items():
+        host_s = min(stage_time(fn) for _ in range(PATH_REPS))
+        profile_window(fn, card, f"{name} (host best of {PATH_REPS} {host_s * 1e3:.3f} ms)",
+                       host_s)
+    return dict(path="pusch.decode, 100 PRB, PUSCH 96 PRB 64QAM TBS 71112 with UCI, "
+                "default TURBO_KERNEL", launches=per_decode,
+                decode_ms=min(times) * 1e3)
+
+
+def stage_time(fn) -> float:
+    """Host-clock seconds of one call of fn, to its end on the device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mbsfn_path(dev, gen, card: str) -> dict:
+    """PMCH at 100 PRB (area 1, subframe 1, 64QAM, TBS 46888), BATCH grids
+    through AWGN at SNR_DB, decoded under the default TURBO_KERNEL: every
+    crc_ok and bit exact, only map_fused16 launched.  Returns map_fused16's
+    mbsfn_path entry for the kernels line."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import pmch
+    from srsran_4g_tpu_torch.ops import turbo
+
+    os.environ.pop("TURBO_KERNEL", None)
+    cfg = pmch.PmchConfig(nof_prb=100, area_id=1, subframe=1, mod="64qam", tbs=PMCH_TBS)
+    grp = cfg.plan.groups[0]
+    l_win = turbo.window_length(grp.K, 208, 32)
+    if (len(cfg.plan.groups), grp.count, grp.K, l_win) != (1, PMCH_CBS, PMCH_K, PMCH_L):
+        raise AssertionError(f"PMCH: segmentation {cfg.plan}, window {l_win}")
+    bits = torch.randint(0, 2, (BATCH, cfg.tbs), generator=gen, device=dev, dtype=torch.int8)
+    rx = awgn.awgn(pmch.encode(cfg, bits), awgn.snr_to_noise_var(SNR_DB, device=dev),
+                   generator=gen)
+    reset_counts()
+    out = pmch.decode(cfg, rx, n_iter=N_ITER)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_exact(out["crc_ok"], out["bits"], bits, "PMCH")
+    if {name for name, n in counts.items() if n} != {"map_fused16"}:
+        raise AssertionError(f"the PMCH path launched {counts}, expected only map_fused16")
+    log(f"MBSFN path: PMCH 100 PRB area 1 subframe 1 64QAM TBS {cfg.tbs} (code rate "
+        f"{cfg.tbs / cfg.g_bits:.3f}, {grp.count} CBs of K={grp.K}, L={l_win}), batch {BATCH}, "
+        f"{SNR_DB} dB: crc_ok {int(out['crc_ok'].sum())}/{BATCH}, bits equal; launches {counts}")
+    times, _, out = timed_decodes(cfg, rx, PATH_REPS, decode=pmch.decode)
+    check_exact(out["crc_ok"], out["bits"], bits, "PMCH (timed)")
+    log(f"[{card}] PMCH decode of {BATCH} subframes: best of {PATH_REPS} "
+        f"{min(times) * 1e3:.2f} ms ({', '.join(f'{t * 1e3:.2f}' for t in times)}) = "
+        f"{BATCH / min(times):.1f} subframes/s")
+    profile_window(lambda: pmch.decode(cfg, rx, n_iter=N_ITER), card,
+                   f"PMCH decode of {BATCH}", min(times))
+    return dict(path="pmch.decode, 100 PRB 64QAM TBS 46888, default TURBO_KERNEL",
+                launches=counts["map_fused16"], decode_ms=min(times) * 1e3)
+
+
+def sync_stream(dev, gen, n_sf: int, lead: int, cfo: float, nbr_shift: int,
+                noise: bool = True):
+    """The UE's input: ``n_sf`` subframes of cell SYNC_CELL_ID at 100 PRB from
+    ``enb_dl.assemble_subframe`` (64QAM PDSCH on every PRB, CRS, PSS/SSS,
+    PCFICH, the MIB in subframe 0 of each frame), after ``lead`` samples;
+    the neighbour SYNC_NBR_ID (CRS and PSS/SSS only, SYNC_NBR_DB weaker,
+    ``nbr_shift`` samples later); a CFO of ``cfo`` subcarriers on both and
+    AWGN at SNR_DB.  Returns (stream (1, n), the stream less the serving
+    cell (the neighbour and the noise), clean serving samples (n_sf,
+    sf_len), the serving grids (n_sf, 14, nre), the MIB bits)."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import enb_dl, grid, pdsch
+
+    cell = grid.CellConfig(nof_prb=100, cell_id=SYNC_CELL_ID, cfi=1)
+    nbr = grid.CellConfig(nof_prb=100, cell_id=SYNC_NBR_ID, cfi=1)
+    mib = torch.randint(0, 2, (1, 24), generator=gen, device=dev, dtype=torch.int8)
+    grids, nbr_sf = [], []
+    for k in range(n_sf):
+        cfg = pdsch.PdschConfig(cell=cell, rnti=0x1234, subframe=k % 10, mod="64qam",
+                                tbs=75376)
+        tb = torch.randint(0, 2, (1, cfg.tbs), generator=gen, device=dev, dtype=torch.int8)
+        grids.append(enb_dl.assemble_subframe(cfg, tb, mib_bits=mib, frame_idx=k // 10)[0])
+        ncfg = pdsch.PdschConfig(cell=nbr, rnti=1, subframe=k % 10, mod="qpsk", tbs=16)
+        g = pdsch.add_crs(ncfg, torch.zeros((1, 14, nbr.nre), dtype=torch.complex64,
+                                            device=dev))
+        nbr_sf.append(enb_dl.subframe_to_samples(nbr, enb_dl.put_sync_signals(nbr, g, k % 10)))
+    grids = torch.stack(grids)
+    clean = enb_dl.subframe_to_samples(cell, grids)  # (n_sf, sf_len)
+    sf_len = clean.shape[-1]
+    n = lead + n_sf * sf_len + 2 * sf_len
+    x = torch.zeros(n, dtype=torch.complex64, device=dev)
+    x[lead:lead + n_sf * sf_len] = clean.reshape(-1)
+    nb = torch.cat(nbr_sf, dim=-1)[0] * 10 ** (-SYNC_NBR_DB / 20)
+    x[lead + nbr_shift:lead + nbr_shift + nb.shape[-1]] += nb[:n - lead - nbr_shift]
+    ph = 2 * np.pi * cfo * torch.arange(n, device=dev, dtype=torch.float64) / 2048
+    ramp = torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+    serving = torch.zeros_like(x)
+    serving[lead:lead + n_sf * sf_len] = clean.reshape(-1)
+    x = x * ramp
+    if noise:
+        x = awgn.awgn(x, awgn.snr_to_noise_var(SNR_DB, device=dev), generator=gen)
+    return x[None], (x - serving * ramp)[None], clean, grids, mib
+
+
+def evm_db(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """EVM of got against want after the least-squares complex gain, in dB,
+    and that gain's magnitude."""
+    g = torch.sum(got * want.conj()) / torch.sum(want.abs() ** 2)
+    e = torch.sum((got - g * want).abs() ** 2) / torch.sum((g * want).abs() ** 2)
+    return 10 * float(torch.log10(e)), float(g.abs())
+
+
+def sync_path(dev, gen, card: str) -> None:
+    """The UE around the downlink at 100 PRB: UeSync FIND → TRACK over a
+    SYNC_SF-subframe stream with a neighbour, the MIB, CRS measurements, the
+    neighbour search, FDD/TDD detection, resampling to 23.04 Msps and back,
+    AGC and CFR, every check against the values put in."""
+    from srsran_4g_tpu_torch.models import enb_dl, grid, meas, sync, tdd, ue_sync
+    from srsran_4g_tpu_torch.ops import agc, cfr, ofdm, resampling
+    from srsran_4g_tpu_torch.ops.ofdm import OfdmConfig, _symbol_offsets
+
+    ocfg = OfdmConfig(nof_prb=100)
+    sf_len, n = ocfg.sf_len, ocfg.symbol_sz
+    lead = int(torch.randint(0, SYNC_LEAD_MAX + 1, (1,), generator=gen, device=dev))
+    cfo = float((2 * torch.rand(1, generator=gen, device=dev) - 1) * DL_CFO)
+    nbr_shift = int(torch.randint(sf_len // 8, sf_len, (1,), generator=gen, device=dev))
+    t0 = time.perf_counter()
+    x, rest, clean, grids, mib = sync_stream(dev, gen, SYNC_SF, lead, cfo, nbr_shift)
+    torch.cuda.synchronize()
+    log(f"sync path: {SYNC_SF} subframes of cell {SYNC_CELL_ID} at 100 PRB after a lead of "
+        f"{lead}, neighbour {SYNC_NBR_ID} {SYNC_NBR_DB} dB weaker {nbr_shift} samples later, CFO "
+        f"{cfo:+.5f} subcarrier, {SNR_DB} dB; made in {time.perf_counter() - t0:.2f} s")
+
+    # ---- FIND, the MIB, TRACK --------------------------------------------------
+    us = ue_sync.UeSync(nof_prb=100)
+    t0 = time.perf_counter()
+    found = us.zerocopy(x[0, :2 * sf_len])
+    find_s = time.perf_counter() - t0
+    start = int(found["offset"]) - int(_symbol_offsets(ocfg)[6])
+    checks = {"FIND in sync": found["in_sync"], "cell id": found.get("cell_id") == SYNC_CELL_ID,
+              "subframe start exact": start == lead, "subframe 0": us.s.sf_idx == 0}
+    mib_out = ue_sync.decode_mib(found["cell_id"], found["sf_samples"][None])
+    checks["MIB crc_ok"] = bool(mib_out["crc_ok"].all())
+    checks["MIB bits"] = torch.equal(mib_out["mib"], mib)
+    track_s, lost = [], 0
+    outs = []
+    for k in range(SYNC_SF):
+        chunk = x[0, start + k * sf_len:start + (k + 1) * sf_len]
+        t0 = time.perf_counter()
+        o = us.zerocopy(chunk)
+        track_s.append(time.perf_counter() - t0)
+        lost += not (o["in_sync"] and o["state"] == ue_sync.TRACK)
+        outs.append(o)
+    cfo_err = abs(us.s.cfo_hz_acc - cfo)
+    checks.update({"TRACK in sync on every subframe": lost == 0,
+                   f"{SYNC_SF // 10} frames tracked": us.s.frames_tracked == SYNC_SF // 10,
+                   f"|CFO error| < {SYNC_CFO_TOL}": cfo_err < SYNC_CFO_TOL})
+    log(f"[{card}] UE sync: FIND {find_s * 1e3:.2f} ms; TRACK per subframe best "
+        f"{min(track_s) * 1e3:.3f} ms, median {float(np.median(track_s)) * 1e3:.3f} ms, "
+        f"subframes 0/5 (PSS checked) median "
+        f"{float(np.median(track_s[::5])) * 1e3:.3f} ms, host clock; CFO estimate "
+        f"{us.s.cfo_hz_acc:+.5f} (error {cfo_err:.2e} subcarrier)")
+
+    # ---- measurements on a tracked subframe 0 -----------------------------------
+    # the SINR put in: the serving CRS at 0 dB against what the rest of the
+    # stream (the neighbour and the noise) puts on the same REs
+    cell = grid.CellConfig(nof_prb=100, cell_id=SYNC_CELL_ID, cfi=1)
+    m = meas.measure_cell(ofdm.demodulate(ocfg, outs[10]["sf_samples"][None]), cell, 0)
+    ls, ks = grid.crs_pattern(cell, 0)
+    g_rest = ofdm.demodulate(ocfg, rest[:, start + 10 * sf_len:start + 11 * sf_len])
+    sinr_db = -10 * float(torch.log10((g_rest[0, torch.as_tensor(ls, device=dev)[:, None],
+                                              torch.as_tensor(ks, device=dev)].abs() ** 2)
+                                      .mean()))
+    rsrp_db = 10 * float(torch.log10(m["rsrp"][0]))
+    snr_db, resid_hz = float(m["snr_db"][0]), float(m["cfo_hz"][0])
+    cfo_meas_hz = us.s.cfo_hz_acc * 15e3 + resid_hz
+    checks.update({f"|RSRP| < {SYNC_RSRP_TOL_DB} dB": abs(rsrp_db) < SYNC_RSRP_TOL_DB,
+                   f"SNR within {SYNC_SNR_TOL_DB} dB of the SINR put in":
+                   abs(snr_db - sinr_db) < SYNC_SNR_TOL_DB,
+                   f"|CFO| within {SYNC_CFO_HZ_TOL} Hz": abs(cfo_meas_hz - cfo * 15e3)
+                   < SYNC_CFO_HZ_TOL})
+    log(f"sync path: measure_cell RSRP {rsrp_db:+.3f} dB (sent 0 dB), SNR {snr_db:.2f} dB "
+        f"(the SINR put in on the CRS REs {sinr_db:.2f} dB: AWGN at {SNR_DB} dB and the "
+        f"neighbour), CFO {cfo_meas_hz:+.1f} Hz (sent {cfo * 15e3:+.1f} Hz; residual after "
+        f"tracking {resid_hz:+.1f} Hz), RSRQ {float(m['rsrq_db'][0]):.2f} dB")
+    t0 = time.perf_counter()
+    cells = meas.find_neighbour_cells(x[:, start:start + SYNC_SF * sf_len], 100,
+                                      serving_cell_id=SYNC_CELL_ID)
+    torch.cuda.synchronize()
+    nbr_s = time.perf_counter() - t0
+    ids = [c["cell_id"] for c in cells]
+    checks["neighbour found"] = SYNC_NBR_ID in ids
+    checks["serving excluded"] = SYNC_CELL_ID not in ids
+    log(f"[{card}] find_neighbour_cells on the {SYNC_SF} subframes: {nbr_s * 1e3:.2f} ms; "
+        f"found (cell, peak/RMS) {[(c['cell_id'], round(c['peak_ratio'], 2)) for c in cells]} "
+        f"(the JAX package's threshold 2.0 also passes N_ID_2 hypotheses of noise)")
+
+    # ---- FDD / TDD -----------------------------------------------------------------
+    cap = x[:, :2 * sf_len]
+    f = sync.find_pss(cap, n)
+    fdd = tdd.detect_frame_type(cap, f["offset"], f["n_id_2"], ocfg)
+    tdd_cell = grid.CellConfig(nof_prb=100, cell_id=SYNC_CELL_ID, cfi=1)
+    tdd_x = torch.cat([enb_dl.subframe_to_samples(tdd_cell, enb_dl.put_sync_signals_tdd(
+        tdd_cell, torch.zeros((1, 14, 1200), dtype=torch.complex64, device=dev), sf))
+        for sf in range(3)], dim=-1)
+    tdd_x = tdd_x + (torch.randn(tdd_x.shape, generator=gen, device=dev,
+                                 dtype=torch.complex64) * 10 ** (-SNR_DB / 20))
+    ft = sync.find_pss(tdd_x, n)
+    tdd_res = tdd.detect_frame_type(tdd_x, ft["offset"], ft["n_id_2"], ocfg)
+    checks.update({
+        "FDD stream: FDD": int(fdd.frame_type[0]) == 0,
+        "FDD stream: cell id": int(3 * fdd.n_id_1[0] + f["n_id_2"][0]) == SYNC_CELL_ID,
+        "TDD stream: TDD": int(tdd_res.frame_type[0]) == 1,
+        "TDD stream: cell id": int(3 * tdd_res.n_id_1[0] + ft["n_id_2"][0]) == SYNC_CELL_ID,
+        "TDD stream: PSS offset": int(ft["offset"][0]) == tdd.pss_to_sf_start(ocfg, "tdd")})
+
+    # ---- resampling 30.72 -> 23.04 Msps and back ---------------------------------
+    r15 = OfdmConfig(nof_prb=100, custom_symbol_sz=1536)
+    flat = clean.reshape(1, -1)
+    t0 = time.perf_counter()
+    poly = resampling.resample_polyphase(flat, 0.75)
+    fft34 = resampling.resample_fft(flat, 3, 4)
+    back = resampling.resample_fft(fft34, 4, 3)
+    torch.cuda.synchronize()
+    rs_s = time.perf_counter() - t0
+    evm = {}
+    for name, y, cfg_r in (("polyphase 3/4", poly, r15), ("FFT 3/4", fft34, r15),
+                           ("FFT 3/4 and back", back, ocfg)):
+        g_rx = ofdm.demodulate(cfg_r, y[0, :SYNC_SF * cfg_r.sf_len].reshape(SYNC_SF, -1))
+        evm[name] = evm_db(g_rx, grids)
+    x23 = resampling.resample_polyphase(x, 0.75)
+    f23 = sync.find_pss(x23[:, :2 * r15.sf_len], 1536)
+    res23 = tdd.detect_frame_type(x23, f23["offset"], f23["n_id_2"], r15)
+    checks.update({
+        f"polyphase EVM < {SYNC_EVM_POLY_DB} dB": evm["polyphase 3/4"][0] < SYNC_EVM_POLY_DB,
+        f"FFT EVM < {SYNC_EVM_FFT_DB} dB": max(evm["FFT 3/4"][0], evm["FFT 3/4 and back"][0])
+        < SYNC_EVM_FFT_DB,
+        "23.04 Msps: cell id": int(3 * res23.n_id_1[0] + f23["n_id_2"][0]) == SYNC_CELL_ID,
+        "23.04 Msps: FDD": int(res23.frame_type[0]) == 0})
+    log(f"[{card}] resampling {SYNC_SF} subframes (polyphase 3/4, FFT 3/4, FFT 4/3): "
+        f"{rs_s * 1e3:.2f} ms host clock; in-band EVM against the sent grids (dB, |gain|): "
+        + ", ".join(f"{k} {v[0]:.2f} ({v[1]:.4f})" for k, v in evm.items())
+        + f"; the 23.04 Msps stream searched at symbol_sz 1536: cell "
+        f"{int(3 * res23.n_id_1[0] + f23['n_id_2'][0])}, frame type "
+        f"{'TDD' if int(res23.frame_type[0]) else 'FDD'}")
+
+    # ---- AGC from -20 dB, then CFR on the eNB's symbols -------------------------
+    acfg = agc.AgcConfig()
+    frames = x[0, lead:lead + SYNC_SF * sf_len].reshape(SYNC_SF // 10, 10 * sf_len)
+    frames = frames * (acfg.target * 10 ** (-20 / 20) / float(frames.abs().max()))
+    gain = torch.zeros(1, device=dev)
+    gains, peaks = [], []
+    for i in range(AGC_FRAMES):
+        y, gain = agc.agc_step(acfg, frames[i % frames.shape[0]][None], gain)
+        gains.append(float(gain[0]))
+        peaks.append(float(y.abs().max()))
+    last = gains[-5:]
+    out_db = 20 * np.log10(peaks[-1] / acfg.target)
+    checks.update({f"AGC gain within {AGC_TOL_DB} dB of +20": abs(gains[-1] - 20) < AGC_TOL_DB,
+                   f"AGC settled (last 5 within {AGC_TOL_DB} dB)":
+                   max(last) - min(last) < AGC_TOL_DB})
+    log(f"sync path: AGC from -20 dB over {AGC_FRAMES} frames: gain (dB) "
+        f"{', '.join(f'{g:.2f}' for g in gains)}; last output peak {out_db:+.2f} dB against "
+        f"the target")
+    offs = torch.as_tensor(_symbol_offsets(ocfg), device=dev)
+    bodies = clean[:, offs[:, None] + torch.arange(n, device=dev)].reshape(-1, n)
+    ccfg = cfr.CfrConfig(symbol_sz=n, nof_re=1200)
+    t0 = time.perf_counter()
+    clipped = cfr.cfr_apply(ccfg, bodies)
+    torch.cuda.synchronize()
+    cfr_s = time.perf_counter() - t0
+    papr_in, papr_out = cfr.papr_db(bodies), cfr.papr_db(clipped)
+    drop = float((papr_in - papr_out).mean())
+    bins = torch.as_tensor(ofdm._sc_to_bin(ocfg), device=dev)
+    cfr_evm = evm_db(torch.fft.fft(clipped)[:, bins], torch.fft.fft(bodies)[:, bins])
+    checks.update({f"PAPR drop > {CFR_DROP_DB} dB": drop > CFR_DROP_DB,
+                   f"CFR in-band EVM < {CFR_EVM_DB} dB": cfr_evm[0] < CFR_EVM_DB})
+    log(f"[{card}] CFR on {bodies.shape[0]} symbols: {cfr_s * 1e3:.2f} ms; PAPR mean "
+        f"{float(papr_in.mean()):.2f} -> {float(papr_out.mean()):.2f} dB (max "
+        f"{float(papr_in.max()):.2f} -> {float(papr_out.max()):.2f}), mean drop {drop:.2f} dB; "
+        f"in-band EVM {cfr_evm[0]:.2f} dB")
+    if not all(checks.values()):
+        raise AssertionError(f"sync path: {checks}")
+    log(f"sync path: every check passed ({', '.join(checks)})")
+
+    # ---- device time of the tracking loop --------------------------------------------
+    def track_frame():
+        t = ue_sync.UeSync(nof_prb=100, state=ue_sync.UeSyncState(
+            state=ue_sync.TRACK, cell_id=SYNC_CELL_ID, cfo_hz_acc=us.s.cfo_hz_acc))
+        for k in range(10):
+            t.zerocopy(x[0, start + k * sf_len:start + (k + 1) * sf_len])
+
+    profile_window(track_frame, card, "UE sync TRACK over 10 subframes",
+                   sum(sorted(track_s)[:10]))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1179,6 +1785,22 @@ def main() -> None:
     dl_path(dev, gen, card)
     probe_kernels = probes_phase(card)
     control_path(dev, gen, card)
+    new_paths = {"ul_path": (ul_path(dev, gen, card), UL_CBS, UL_K, UL_L),
+                 "mbsfn_path": (mbsfn_path(dev, gen, card), PMCH_CBS, PMCH_K, PMCH_L)}
+    sync_path(dev, gen, card)
+    fused16_paths = {}
+    for key, (entry, cbs, k_cb, l_win) in new_paths.items():
+        nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)
+        bound_ms, bound_by = bound(nbytes, adds, maxes, "bf16")
+        r = kern[key]
+        log(f"[{card}] map_fused16 on the {key} at B={BATCH * cbs} K={k_cb} L={l_win} T=32: "
+            f"{entry['launches']} launches a decode, {r['ms']:.4f} ms against a bound of "
+            f"{bound_ms:.4f} ms ({bound_by}); plain {r['plain_ms']:.2f} ms")
+        fused16_paths[key] = dict(
+            entry, shapes=dict(blocks=BATCH * cbs, K=k_cb, L=l_win, T=32,
+                               lanes=BATCH * cbs * (k_cb // l_win)),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
 
     b, k, l, t = BATCH * grp.count, grp.K, 208, 32
     kernels = []
@@ -1202,6 +1824,7 @@ def main() -> None:
             **({"vs_turbo_map_max_abs_err": kern[route]["vs_turbo_map"]}
                if "vs_turbo_map" in kern[route] else {}),
             **({"default_route": default_route} if route == "turbo_map" else {}),
+            **(fused16_paths if route == "map_fused16" else {}),
             **path_device_ms.get(path, {})))
     print(json.dumps({"kernels": kernels + probe_kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,9 @@ bf16 kernels (map_fused16, map_windowed16) equal to their plain versions,
 turbo_decode at windows of 512 and 6144 under TURBO_KERNEL v9, bf16, v7 and
 v8 equal to the CPU decode, every probe kernel
 (ops/cuda/probes.py) against its plain version (f32 atol 1e-3, bf16 equal),
-and the PDSCH, TM4 2x2, DL-from-samples and control-channel receivers on
-CUDA against the same receivers on the CPU (identical ids, bits, flags and
-crc_ok).
+and the PDSCH, TM4 2x2, DL-from-samples, control-channel, PUSCH (with UCI)
+and PMCH receivers and the PRACH detector on CUDA against the same on the
+CPU (identical ids, bits, flags, delays and crc_ok).
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -23,7 +23,7 @@ import torch
 
 from srsran_4g_tpu_torch.channel import awgn
 from srsran_4g_tpu_torch.models import (chest, enb_dl, grid, pbch, pcfich, pdcch, pdsch,
-                                        pdsch_mimo, phich, ue_dl)
+                                        pdsch_mimo, phich, pmch, prach, pusch, uci, ue_dl)
 from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
 
@@ -99,11 +99,13 @@ def test_sweep_and_emit_match_plain(cuda_device, b, k, l, t, radix):
 
 # also the small shape of chip_smoke.py, five tiles (N = 160), a ragged last
 # tile (N = 84), one window (W = 1), L/4 odd (L = 188), L = 512 (32 lanes a
-# block, above 48 KB) and L = K = 6144 (8 lanes a block)
+# block, above 48 KB), L = K = 6144 (8 lanes a block), and the windows of the
+# uplink's PUSCH (K = 5952, L = 192) and the PMCH (K = 5888, L = 184)
 @pytest.mark.parametrize("b,k,l,t", [(8, 5824, 208, 32), (4, 512, 64, 16), (64, 512, 64, 16),
                                      (5, 6144, 192, 32), (3, 5824, 208, 32), (3, 40, 40, 32),
                                      (2, 6016, 188, 32), (4, 1024, 512, 32),
-                                     (2, 6144, 6144, 32)])
+                                     (2, 6144, 6144, 32), (12, 5952, 192, 32),
+                                     (8, 5888, 184, 32)])
 def test_map_fused16_equals_plain(cuda_device, b, k, l, t):
     args = _inputs(cuda_device, b, k, l, t)
     before = turbo_map.launches["map_fused16"]
@@ -233,6 +235,66 @@ def test_pdsch_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), out_cpu["bits"].numpy())
     np.testing.assert_array_equal(out_gpu["crc_ok"].cpu().numpy(), out_cpu["crc_ok"].numpy())
     np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), bits)
+
+
+def test_pusch_with_uci_on_card_matches_cpu(cuda_device):
+    """chip_smoke.py's PUSCH: 100 PRB, PRB 2-97, 64QAM, TBS 71112, 2 ACK and
+    20 CQI bits; two subframes at 20 dB."""
+    cell = grid.CellConfig(nof_prb=100, cell_id=301, cfi=1)
+    cfg = pusch.PuschConfig(cell=cell, rnti=0x46, subframe=2, mod="64qam", tbs=71112,
+                            prb_start=2, nof_prb_alloc=96, uci=uci.UciCfg(o_ack=2, o_cqi=20))
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 2, (2, cfg.tbs)).astype(np.int8)
+    ack, cqi = (torch.as_tensor(rng.integers(0, 2, (2, o)).astype(np.int8), device=cuda_device)
+                for o in (2, 20))
+    tx = pusch.encode(cfg, bits, cqi_bits=cqi, ack_bits=ack)
+    assert tx.device.type == "cuda"
+    rx = awgn.awgn(tx, awgn.snr_to_noise_var(20.0), torch.Generator(device=cuda_device)
+                   .manual_seed(3))
+    before = turbo_map.launches["map_fused16"]
+    out_gpu = pusch.decode(cfg, rx)
+    assert turbo_map.launches["map_fused16"] > before
+    out_cpu = pusch.decode(cfg, rx.cpu())
+    for key in ("bits", "crc_ok", "ack_bits", "cqi_bits", "cqi_ok"):
+        np.testing.assert_array_equal(out_gpu[key].cpu().numpy(), out_cpu[key].numpy(),
+                                      err_msg=key)
+    np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), bits)
+    np.testing.assert_array_equal(out_gpu["ack_bits"].cpu().numpy(), ack.cpu().numpy())
+    np.testing.assert_array_equal(out_gpu["cqi_bits"].cpu().numpy(), cqi.cpu().numpy())
+
+
+def test_pmch_on_card_matches_cpu(cuda_device):
+    """chip_smoke.py's PMCH: 100 PRB, 64QAM, TBS 46888; two subframes at 20 dB."""
+    cfg = pmch.PmchConfig(nof_prb=100, area_id=1, subframe=1, mod="64qam", tbs=46888)
+    bits = np.random.default_rng(4).integers(0, 2, (2, cfg.tbs)).astype(np.int8)
+    rx = awgn.awgn(pmch.encode(cfg, bits), awgn.snr_to_noise_var(20.0),
+                   torch.Generator(device=cuda_device).manual_seed(5))
+    before = turbo_map.launches["map_fused16"]
+    out_gpu = pmch.decode(cfg, rx)
+    assert turbo_map.launches["map_fused16"] > before
+    out_cpu = pmch.decode(cfg, rx.cpu())
+    np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), out_cpu["bits"].numpy())
+    np.testing.assert_array_equal(out_gpu["crc_ok"].cpu().numpy(), out_cpu["crc_ok"].numpy())
+    np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), bits)
+
+
+def test_prach_detect_on_card_matches_cpu(cuda_device):
+    cfg = prach.PrachConfig(symbol_sz=2048, root_seq_index=128, zero_corr_zone=5)
+    rng = np.random.default_rng(6)
+    n = cfg.cp_len + cfg.seq_len_samples
+    caps = ((rng.standard_normal((4, n)) + 1j * rng.standard_normal((4, n)))
+            * np.sqrt(1e-3 / cfg.seq_len_samples / 2)).astype(np.complex64)
+    for row, (idx, delay) in enumerate(((3, 0), (33, 120), (63, 600))):
+        caps[row, delay:] += prach.generate(cfg, idx, device="cpu").numpy()[:n - delay]
+    out_gpu = prach.detect(cfg, torch.as_tensor(caps, device=cuda_device))
+    out_cpu = prach.detect(cfg, torch.as_tensor(caps))
+    np.testing.assert_array_equal(out_gpu["detected"].cpu().numpy(), out_cpu["detected"].numpy())
+    np.testing.assert_array_equal(out_gpu["delay_samples"].cpu().numpy(),
+                                  out_cpu["delay_samples"].numpy())
+    np.testing.assert_allclose(out_gpu["power"].cpu().numpy(), out_cpu["power"].numpy(),
+                               rtol=1e-4, atol=1e-6)
+    assert [np.flatnonzero(r).tolist() for r in out_cpu["detected"].numpy()] == \
+        [[3], [33], [63], []]
 
 
 # --- the probe kernels ---------------------------------------------------------

@@ -12,7 +12,10 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "ops.cuda.probes", "tools.turbo_probe2", "tools.turbo_probe3", "tools.turbo_probe6",
             "tools.turbo_probe7", "utils.bits", "ops.convcode", "models.regs", "models.phich",
             "models.pbch", "models.pdcch", "models.dci", "models.ra", "tools.fused16_split",
-            "tools.windowed_split", "tools.fused_split")
+            "tools.windowed_split", "tools.fused_split", "ops.resampling", "ops.agc", "ops.cfr",
+            "ops.block_code", "models.tdd", "models.ue_sync", "models.meas", "models.pmch",
+            "models.refsignal_ul", "models.cqi", "models.uci", "models.pusch", "models.pucch",
+            "models.prach", "models.srs")
 
 _CHECK = """
 import importlib, pkgutil, sys
