@@ -60,7 +60,20 @@ read just after:
   measurements (RSRP, SNR against the SINR put in, CFO), the neighbour
   search, FDD/TDD detection, resampling to 23.04 Msps (polyphase and FFT,
   in-band EVM, a search at symbol_sz 1536) and back, AGC from -20 dB and CFR
-  (PAPR drop, in-band EVM), with the per-subframe tracking time.
+  (PAPR drop, in-band EVM), with the per-subframe tracking time;
+- the system path (``srsran_4g_tpu_torch.tools.run_lte.run``, the counterpart
+  of the JAX package's tools/run_lte.py): a 20 MHz FDD SISO cell (100 PRB)
+  with two UEs for 360 TTIs at 30 dB — over-the-air acquisition, PRACH, RRC
+  attach with AKA and security mode through the EPC, ciphered pings, every
+  grant on PDCCH, HARQ-ACK/SR/CQI on PUCCH, PHICH — held to every criterion
+  of tests/test_run_lte.py::_run, timed per TTI on the host clock, 20 TTIs
+  after the attach profiled (device ms and kernels per TTI, idle share), the
+  turbo kernels' launches and the (B, K, L) shapes they saw counted, and the
+  kernels held against their plain versions at the largest shape launched;
+  then the JAX test's other matrix points (EPA fading at 14 dB, TM4 at 15
+  PRB, TDD, 2-CC carrier aggregation, SI on DCI 1C at 50 PRB), each with that
+  test's own assertions, and the fading channel's 100 PRB response against
+  the CPU's.
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
 ``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
@@ -213,6 +226,21 @@ PMCH_TBS, PMCH_CBS, PMCH_K, PMCH_L = 46888, 8, 5888, 184
 # with its own timing, a CFO inside +-DL_CFO; the bounds of its checks
 SYNC_CELL_ID, SYNC_NBR_ID, SYNC_NBR_DB = 301, 152, 6.0
 SYNC_SF, SYNC_LEAD_MAX = 40, 2000
+# the system path (tools/run_lte.run): the full-width run, the TTIs after
+# the last attach before the profiled window, and its length
+SYS_RUN = dict(n_ttis=360, n_pings=2, snr_db=30.0, nof_prb=100, n_ues=2)
+SYS_PROFILE_AFTER, SYS_PROFILE_TTIS = 20, 20
+SYS_WRAPPERS = ("map_fused16", "map_windowed")  # the default route's two kernels
+SYS_ROUTE = {"map_fused16": "map_fused16", "map_windowed": "turbo_map"}
+# the stages timed in each TTI (host clock, the device synchronised around
+# each call): the air's calls, and inside them the blind search, its
+# Viterbi and the PDSCH/PUSCH decodes; what the air's calls leave of a TTI is
+# the nodes' and the stack's Python
+SYS_STAGES = ("LteAirPhy.enb_dl_tx", "LteAirPhy.ue_dl_rx_multi", "pdcch.blind_decode",
+              "convcode.viterbi_decode", "pdsch.decode", "LteAirPhy.ue_phich_rx",
+              "LteAirPhy.ue_ul_tx", "LteAirPhy.combine_ul", "LteAirPhy.enb_ul_grid",
+              "LteAirPhy.enb_pusch_rx", "pusch.decode", "LteAirPhy.enb_pucch_ack_rx",
+              "LteAirPhy.enb_sr_rx", "LteAirPhy.enb_cqi_rx", "LteAirPhy.prach")
 SYNC_CFO_TOL = 0.005       # subcarriers, the tracked CFO against the one put in
 SYNC_CFO_HZ_TOL = 50.0     # tracked CFO + measure_cell's residual, against the one put in
 SYNC_RSRP_TOL_DB = 0.5     # the serving CRS is sent at 0 dB
@@ -1672,6 +1700,299 @@ def sync_path(dev, gen, card: str) -> None:
                    sum(sorted(track_s)[:10]))
 
 
+class SystemClock:
+    """Hooks on the nodes' once-a-TTI ``tick`` and on the default route's
+    turbo wrappers for one system run: each TTI's host time (the device
+    synchronised at every TTI boundary), a torch.profiler window of
+    SYS_PROFILE_TTIS TTIs starting SYS_PROFILE_AFTER TTIs after the last UE
+    attached, each wrapper's (B, K, L, T) shapes with the inputs of its
+    largest call, and the host time of each of SYS_STAGES a TTI.  The hooks
+    only observe: each wrapper still counts its own launches."""
+
+    def __init__(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        self.ues: list = []
+        self.stamps: list[float] = []
+        self.attach_tti: int | None = None
+        self.window: tuple[int, int] | None = None
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.shapes: dict[str, dict] = {w: {} for w in SYS_WRAPPERS}
+        self.largest: dict[str, tuple] = {}
+        self.stage_s: dict[str, dict[int, float]] = {st: {} for st in SYS_STAGES}
+        self.stage_n: dict[str, int] = {st: 0 for st in SYS_STAGES}
+
+    def __enter__(self):
+        from srsran_4g_tpu_torch.apps import nodes
+        from srsran_4g_tpu_torch.models import pdcch, pdsch, pusch
+        from srsran_4g_tpu_torch.ops import convcode
+        from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+        from srsran_4g_tpu_torch.runtime import lte_air
+
+        owners = dict(LteAirPhy=lte_air.LteAirPhy, pdcch=pdcch, pdsch=pdsch, pusch=pusch,
+                      convcode=convcode)
+        self._saved = [(nodes.UeNode, "tick", nodes.UeNode.tick),
+                       (nodes.EnbNode, "tick", nodes.EnbNode.tick)]
+        self._saved += [(tm, w, getattr(tm, w)) for w in SYS_WRAPPERS]
+        for st in SYS_STAGES:
+            owner, name = owners[st.split(".")[0]], st.split(".")[1]
+            self._saved.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, self._timed(st, getattr(owner, name)))
+        ue_tick, enb_tick = nodes.UeNode.tick, nodes.EnbNode.tick
+        clock = self
+
+        def ue_hook(ue):
+            if ue not in clock.ues:
+                clock.ues.append(ue)
+            ue_tick(ue)
+
+        def enb_hook(enb):
+            clock.tti_boundary()
+            enb_tick(enb)
+
+        nodes.UeNode.tick, nodes.EnbNode.tick = ue_hook, enb_hook
+        for w in SYS_WRAPPERS:
+            setattr(tm, w, self._spy(w, getattr(tm, w)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        if self.window is not None and len(self.window) == 1:
+            self.prof.stop()
+        return False
+
+    def _spy(self, name: str, fn):
+        def spy(gs, gp, a0, b0, t, l, nb, nw):
+            key = (nb, l * nw, l, t)
+            self.shapes[name][key] = self.shapes[name].get(key, 0) + 1
+            if gs.shape[1] > self.largest.get(name, (0,))[0]:
+                self.largest[name] = (gs.shape[1], (gs.clone(), gp.clone(), a0.clone(),
+                                                    b0.clone(), t, l, nb, nw))
+            return fn(gs, gp, a0, b0, t, l, nb, nw)
+        return spy
+
+    def _timed(self, stage: str, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                tti = len(self.stamps) - 1
+                self.stage_s[stage][tti] = self.stage_s[stage].get(tti, 0.0) + (
+                    time.perf_counter() - t0)
+                self.stage_n[stage] += 1
+        return timed
+
+    def stage_ms(self, ttis: range) -> dict[str, float]:
+        """Mean host ms a TTI of each stage over ``ttis``, outside the
+        profiled window."""
+        keep = [t for t in ttis if self.window is None or len(self.window) != 2
+                or not self.window[0] <= t < self.window[1]]
+        return {st: sum(v.get(t, 0.0) for t in keep) / len(keep) * 1e3
+                for st, v in self.stage_s.items()}
+
+    def tti_boundary(self) -> None:
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        tti = len(self.stamps) - 1
+        if self.attach_tti is None and self.ues and all(u.nas.is_registered() for u in self.ues):
+            self.attach_tti = tti
+        start = None if self.attach_tti is None else self.attach_tti + SYS_PROFILE_AFTER
+        if tti == start:
+            self.prof.start()
+            self.window = (tti,)
+        elif start is not None and tti == start + SYS_PROFILE_TTIS:
+            self.prof.stop()
+            self.window = (start, tti)
+
+    def tti_ms(self) -> np.ndarray:
+        """Host ms of every complete TTI outside the profiled window."""
+        ms = np.diff(self.stamps) * 1e3
+        keep = np.ones(len(ms), bool)
+        if self.window is not None and len(self.window) == 2:
+            keep[self.window[0]:self.window[1]] = False
+        return ms[keep]
+
+
+def sys_checks_run(stats, ues, n_ues: int, n_pings: int) -> dict[str, bool]:
+    """tests/test_run_lte.py::_run's criteria (and its 2-UE case's distinct
+    C-RNTIs)."""
+    return {
+        "camped on PCI 1 over the air": all(u.sync_state == "camped" and u.acq_pci == 1
+                                            and u.acq_sfn >= 0 for u in ues),
+        "SI acquired": all(u.rrc.idle.si_acquired() for u in ues),
+        "one PRACH per UE": stats["prach"] == n_ues,
+        "distinct C-RNTIs": len({u.crnti for u in ues}) == n_ues,
+        "attached": all(u.nas.is_registered() for u in ues),
+        "0 PDSCH/PUSCH KO": stats["pdsch_ko"] == 0 and stats["pusch_ko"] == 0,
+        "0% DL ping loss": stats["dl_ping_rx"] == n_pings * n_ues,
+        "0% UL ping loss": stats["ul_ping_rx"] >= n_pings * n_ues,
+        "dci_tx >= pdsch_tx": stats["dci_tx"] >= stats["pdsch_tx"],
+        "PHICH ACKs": stats["phich_ack"] > 0,
+        "PHICH ACK+NACK >= PUSCH - 4":
+            stats["phich_ack"] + stats["phich_nack"] >= stats["pusch_tx"] - 4,
+        "CQI >= 13 after the first report": all(c >= 13 for u in ues for c in u.cqi_sent[1:]),
+    }
+
+
+# the JAX test's other matrix points (tests/test_run_lte.py), each with that
+# test's own assertions: (name, run arguments, checks of (ok, stats, ues))
+SYS_MATRIX = (
+    ("EPA 5 Hz at 14 dB, 6 PRB, 1 UE, 500 TTIs",
+     dict(n_ttis=500, n_pings=2, snr_db=14.0, nof_prb=6, n_ues=1, fading_profile="epa",
+          doppler_hz=5.0),
+     lambda ok, st, ues: {
+         "ok": ok, "KO occurred": st["pdsch_ko"] + st["pusch_ko"] > 0,
+         "PHICH NACKs": st["phich_nack"] > 0,
+         "retransmissions": st["dl_retx"] > 0 or st["pusch_ko"] > 0,
+         "pings": st["dl_ping_rx"] == 2 and st["ul_ping_rx"] >= 2,
+         "CQI tracks the fading": min(ues[0].cqi_sent) < 10 and len(set(ues[0].cqi_sent)) > 2}),
+    ("TM4 at 15 PRB", dict(n_ttis=300, n_pings=2, snr_db=30.0, nof_prb=15, n_ues=1, tm=4),
+     lambda ok, st, ues: {
+         "ok": ok, "rank-2 sent": st["pdsch_tx_rank2"] > 0, "rank-2 decoded": st["pdsch_rank2"] > 0,
+         "0 KO": st["pdsch_ko"] == 0 and st["pusch_ko"] == 0,
+         "pings": st["dl_ping_rx"] == 2 and st["ul_ping_rx"] >= 2}),
+    ("TDD at 6 PRB", dict(n_ttis=300, n_pings=2, snr_db=30.0, nof_prb=6, n_ues=1, tdd=True),
+     lambda ok, st, ues: {
+         "ok": ok, "one PRACH": st["prach"] == 1, "0 KO": st["pdsch_ko"] == 0 and st["pusch_ko"] == 0,
+         "pings": st["dl_ping_rx"] == 2 and st["ul_ping_rx"] >= 2,
+         "camped on PCI 1": ues[0].sync_state == "camped" and ues[0].acq_pci == 1}),
+    ("2-CC CA at 6 PRB, a 1,400-byte burst",
+     dict(n_ttis=360, n_pings=2, snr_db=30.0, nof_prb=6, n_ues=1, n_cc=2, burst_bytes=1400),
+     lambda ok, st, ues: {
+         "ok": ok, "SCell carried data": st["scell_tx"] > 0, "0 PDSCH KO": st["pdsch_ko"] == 0,
+         "SCell activated": 1 in ues[0].mac.demux.active_scells}),
+    ("SI on DCI 1C at 50 PRB", dict(n_ttis=300, n_pings=2, snr_db=30.0, nof_prb=50, n_ues=1,
+                                    si_1c=True),
+     lambda ok, st, ues: {
+         "ok": ok, "SI on 1C sent": st["si_1c_tx"] > 0, "0 PDSCH KO": st["pdsch_ko"] == 0,
+         "SI acquired": all(u.rrc.idle.si_acquired() for u in ues)}),
+)
+
+
+def system_path(dev, card: str) -> dict:
+    """The port's tools/run_lte.run at 100 PRB with two UEs on the card,
+    every criterion of tests/test_run_lte.py::_run, timed per TTI and
+    profiled over SYS_PROFILE_TTIS TTIs after the attach; then each turbo
+    kernel the run launched against its plain version at the largest shape
+    it saw, the matrix points of SYS_MATRIX, and the fading response at 100
+    PRB against the CPU's.  Returns each default-route kernel's entry for
+    the kernels line."""
+    from torch.autograd import DeviceType
+
+    from srsran_4g_tpu_torch.channel import fading
+    from srsran_4g_tpu_torch.tools import run_lte
+
+    run = dict(SYS_RUN)
+    log(f"system path: run_lte.run({', '.join(f'{k}={v}' for k, v in run.items())}) on {dev}")
+    reset_counts()
+    with SystemClock() as clock:
+        t0 = time.perf_counter()
+        ok, stats, ues, _ = run_lte.run(**run, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    checks = sys_checks_run(stats, ues, run["n_ues"], run["n_pings"])
+    checks["run_lte's own verdict"] = ok
+    checks["profiled window inside the run"] = clock.window is not None and len(clock.window) == 2
+    checks["default-route kernels launched"] = sum(launches[w] for w in SYS_WRAPPERS) > 0
+    log(f"system path: stats {stats}; attached at TTI {clock.attach_tti}; CQI "
+        + "; ".join(f"ue{u.idx} {u.cqi_sent}" for u in ues))
+    if not all(checks.values()):
+        raise AssertionError(f"system path: {checks}")
+    log(f"system path: every criterion passed ({', '.join(checks)})")
+    ms = clock.tti_ms()
+    after = ms[clock.attach_tti:] if clock.attach_tti is not None else ms
+    log(f"[{card}] system path: {run['n_ttis']} TTIs in {wall:.2f} s = "
+        f"{run['n_ttis'] / wall:.2f} TTIs/s; host ms a TTI (the air's is 1 ms), outside "
+        f"the profiled window: median {np.median(ms):.2f}, p90 {np.percentile(ms, 90):.2f}, "
+        f"max {ms.max():.2f} (after the attach: median {np.median(after):.2f}, "
+        f"p90 {np.percentile(after, 90):.2f})")
+    kernels = [e for e in clock.prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / SYS_PROFILE_TTIS
+    n_k = sum(e.count for e in kernels) / SYS_PROFILE_TTIS
+    profiled = (clock.stamps[clock.window[1]] - clock.stamps[clock.window[0]]) * 1e3
+    prof = dict(window=list(clock.window), device_ms_per_tti=busy, kernels_per_tti=n_k,
+                host_ms_per_tti_profiled=profiled / SYS_PROFILE_TTIS,
+                host_ms_per_tti_median=float(np.median(after)))
+    if busy <= 0:
+        log(f"[{card}] system path: profiler saw no device time: idle share not measured")
+    else:
+        prof["idle_share"] = 1 - busy / float(np.median(after))
+        log(f"[{card}] system path, TTIs {clock.window[0]}-{clock.window[1] - 1} profiled: "
+            f"device {busy:.3f} ms in {n_k:.0f} kernels a TTI; idle share "
+            f"{prof['idle_share']:.3f} of the unprofiled median TTI after the attach "
+            f"({np.median(after):.2f} ms; {profiled / SYS_PROFILE_TTIS:.2f} ms a TTI under "
+            f"the profiler)")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"  {e.self_device_time_total / 1e3 / SYS_PROFILE_TTIS:8.4f} ms a TTI  "
+                f"x{e.count / SYS_PROFILE_TTIS:<7.1f} {e.key[:90]}")
+    steady = range(clock.attach_tti, len(clock.stamps) - 1)
+    stages = clock.stage_ms(steady)
+    top = sum(v for k, v in stages.items() if k.startswith("LteAirPhy."))
+    log(f"[{card}] system path, host ms a TTI by stage after the attach (TTIs "
+        f"{steady.start}-{steady.stop - 1} outside the profiled window; mean TTI "
+        f"{np.mean(after):.2f} ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; the air's calls {top:.2f}, the rest (nodes, MAC/RLC/PDCP/RRC/NAS, "
+        f"EPC) {np.mean(after) - top:.2f}")
+    prof["stage_ms"] = dict(stages, rest=float(np.mean(after) - top))
+    log(f"system path launches: {launches}; shapes (B, K, L, T): "
+        + "; ".join(f"{w} {dict(sorted(v.items()))}" for w, v in clock.shapes.items()))
+
+    # ---- each kernel the run launched, against its plain version ----------------
+    entries = {}
+    for w in SYS_WRAPPERS:
+        if w not in clock.largest:
+            continue
+        _, args = clock.largest[w]
+        r = check_kernel(SYS_ROUTE[w], args, time_it=True)
+        gs, _, _, _, t, l, b, nw = args
+        nbytes, adds, maxes = work(w, b, l * nw, l, t)
+        bound_ms, bound_by = bound(nbytes, adds, maxes, "bf16" if w in BF16_WRAPPERS else "f32")
+        entries[w] = dict(
+            launches=launches[w], shapes=[dict(blocks=k[0], K=k[1], L=k[2], T=k[3], calls=n)
+                                          for k, n in sorted(clock.shapes[w].items())],
+            largest=dict(blocks=b, K=l * nw, L=l, T=t, lanes=gs.shape[1]),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        log(f"[{card}] system path {w} at its largest shape B={b} K={l * nw} L={l} T={t}: "
+            f"{r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}); plain "
+            f"{r['plain_ms']:.2f} ms; max|diff| {r['max_abs_err']}")
+    clock.largest.clear()
+
+    # ---- the fading channel on the card against the CPU ---------------------------
+    cfg = fading.FadingConfig("etu", 300.0, 30.72e6)
+    tt = torch.linspace(0.5, 0.501, 14, dtype=torch.float32)
+    ff = (torch.arange(-600, 600, dtype=torch.float32) / 2048)
+    err = float((fading.freq_response(cfg, 15, tt.to(dev), ff.to(dev)).cpu()
+                 - fading.freq_response(cfg, 15, tt, ff)).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"fading response on the card vs the CPU: max |diff| {err}")
+    log(f"fading response at 100 PRB (ETU 300 Hz, t = 0.5 s), card vs CPU: max|diff| {err:.3g}")
+
+    # ---- the JAX test's other matrix points ------------------------------------
+    matrix = {}
+    for name, kw, check in SYS_MATRIX:
+        t0 = time.perf_counter()
+        ok, st, m_ues, _ = run_lte.run(**kw, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res = check(ok, st, m_ues)
+        log(f"[{card}] system matrix {name}: {kw['n_ttis']} TTIs in {secs:.2f} s "
+            f"({kw['n_ttis'] / secs:.2f} TTIs/s); {st}; CQI {m_ues[0].cqi_sent}")
+        if not all(res.values()):
+            raise AssertionError(f"system matrix {name}: {res}")
+        matrix[name] = dict(s=secs, ttis_per_s=kw["n_ttis"] / secs)
+    log(f"system path: every matrix point passed its test's assertions")
+    return dict(entries=entries, wall_s=wall, ttis_per_s=run["n_ttis"] / wall,
+                tti_ms=dict(median=float(np.median(ms)), p90=float(np.percentile(ms, 90)),
+                            max=float(ms.max())),
+                profile=prof, matrix=matrix)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1788,6 +2109,7 @@ def main() -> None:
     new_paths = {"ul_path": (ul_path(dev, gen, card), UL_CBS, UL_K, UL_L),
                  "mbsfn_path": (mbsfn_path(dev, gen, card), PMCH_CBS, PMCH_K, PMCH_L)}
     sync_path(dev, gen, card)
+    system = system_path(dev, card)
     fused16_paths = {}
     for key, (entry, cbs, k_cb, l_win) in new_paths.items():
         nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)
@@ -1824,6 +2146,10 @@ def main() -> None:
             **({"vs_turbo_map_max_abs_err": kern[route]["vs_turbo_map"]}
                if "vs_turbo_map" in kern[route] else {}),
             **({"default_route": default_route} if route == "turbo_map" else {}),
+            **({"system_path": dict(system["entries"].get(wrapper, dict(launches=0)),
+                                    ttis_per_s=system["ttis_per_s"], tti_ms=system["tti_ms"],
+                                    profile=system["profile"])}
+               if wrapper in SYS_WRAPPERS else {}),
             **(fused16_paths if route == "map_fused16" else {}),
             **path_device_ms.get(path, {})))
     print(json.dumps({"kernels": kernels + probe_kernels}))

@@ -5,7 +5,9 @@ static per-config tables, which the port rebuilds from the config, the
 HARQ soft-buffers ``dict[int, (B, 3, K+4)]``, and the host state of the UE's
 loops (``UeSyncState``, ``PowerCtrlState``).  The configs and states arrive
 as ``dataclasses.asdict`` of the JAX package's dataclasses (nested ``cell``,
-``uci`` and ``cfg`` dicts included), so neither side imports the other.
+``uci`` and ``cfg`` dicts included), so neither side imports the other.  The
+channel emulator's configs and the system air (``LteAirPhy``) are built the
+same way from the dicts that build the JAX ones.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from srsran_4g_tpu_torch import resolve_device
+from srsran_4g_tpu_torch.channel.fading import FadingConfig
+from srsran_4g_tpu_torch.channel.impairments import DelayConfig, HstConfig, RlfConfig
 from srsran_4g_tpu_torch.models.chest import ChestConfig
 from srsran_4g_tpu_torch.models.grid import CellConfig
 from srsran_4g_tpu_torch.models.meas import PowerCtrlConfig, PowerCtrlState
@@ -26,6 +30,7 @@ from srsran_4g_tpu_torch.models.pusch import PuschConfig
 from srsran_4g_tpu_torch.models.srs import SrsConfig
 from srsran_4g_tpu_torch.models.uci import UciCfg
 from srsran_4g_tpu_torch.models.ue_sync import UeSyncState
+from srsran_4g_tpu_torch.runtime.lte_air import LteAirPhy
 
 
 def pdsch_config_from_dict(d: dict) -> PdschConfig | PdschMimoConfig | ChestConfig:
@@ -98,3 +103,29 @@ def softbuffers_from_numpy(d: dict, device: torch.device | str | None = None
 def softbuffers_to_numpy(d: dict[int, torch.Tensor]) -> dict[int, np.ndarray]:
     """The port's soft-buffers → float32 numpy arrays, keyed by CB index."""
     return {int(k): v.detach().to("cpu", torch.float32).numpy() for k, v in d.items()}
+
+
+def fading_config_from_dict(d: dict) -> FadingConfig:
+    return FadingConfig(**d)
+
+
+def delay_config_from_dict(d: dict) -> DelayConfig:
+    return DelayConfig(**d)
+
+
+def hst_config_from_dict(d: dict) -> HstConfig:
+    return HstConfig(**d)
+
+
+def rlf_config_from_dict(d: dict) -> RlfConfig:
+    return RlfConfig(**d)
+
+
+def lte_air_phy_from_dict(d: dict, device: torch.device | str | None = None) -> LteAirPhy:
+    """The port's ``LteAirPhy`` from the keyword arguments of a JAX one
+    (``fading`` as ``dataclasses.asdict`` of its ``FadingConfig``, or None),
+    on ``device`` (default CUDA)."""
+    kw = dict(d)
+    if kw.get("fading") is not None:
+        kw["fading"] = fading_config_from_dict(kw["fading"])
+    return LteAirPhy(**kw, device=device)

@@ -8,7 +8,10 @@ v8 equal to the CPU decode, every probe kernel
 (ops/cuda/probes.py) against its plain version (f32 atol 1e-3, bf16 equal),
 and the PDSCH, TM4 2x2, DL-from-samples, control-channel, PUSCH (with UCI)
 and PMCH receivers and the PRACH detector on CUDA against the same on the
-CPU (identical ids, bits, flags, delays and crc_ok).
+CPU (identical ids, bits, flags, delays and crc_ok), the fading channel's
+100 PRB response against the CPU's (atol 1e-5), and the system path
+(``tools.run_lte`` at 100 PRB with two UEs) held to the criteria of
+``tests/test_run_lte.py::_run`` with the turbo kernels launched.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -21,11 +24,12 @@ import numpy as np
 import pytest
 import torch
 
-from srsran_4g_tpu_torch.channel import awgn
+from srsran_4g_tpu_torch.channel import awgn, fading
 from srsran_4g_tpu_torch.models import (chest, enb_dl, grid, pbch, pcfich, pdcch, pdsch,
                                         pdsch_mimo, phich, pmch, prach, pusch, uci, ue_dl)
 from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
+from srsran_4g_tpu_torch.tools import run_lte
 
 torch.set_num_threads(2)
 
@@ -384,3 +388,32 @@ def test_control_channels_on_card_match_cpu(cuda_device):
     np.testing.assert_array_equal(outs["cuda"]["mib"].cpu().numpy(), mib)
     np.testing.assert_array_equal(outs["cuda"]["dci"].cpu().numpy(), d)
     np.testing.assert_array_equal(outs["cuda"]["ack"].cpu().numpy(), ack)
+
+
+def test_fading_on_card_matches_cpu(cuda_device):
+    cfg = fading.FadingConfig("etu", 300.0, 30.72e6)
+    t = torch.linspace(0.5, 0.501, 14, dtype=torch.float32)
+    f = torch.arange(-600, 600, dtype=torch.float32) / 2048
+    want = fading.freq_response(cfg, 15, t, f)
+    got = fading.freq_response(cfg, 15, t.to(cuda_device), f.to(cuda_device))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+def test_run_lte_100prb_on_card(cuda_device):
+    """The system path at 20 MHz with two UEs, on the card: every criterion
+    of tests/test_run_lte.py::_run, through the default turbo kernel."""
+    turbo_map.launches.clear()
+    n_ues, pings = 2, 2
+    ok, stats, ues, mme = run_lte.run(n_ttis=360, n_pings=pings, snr_db=30.0, nof_prb=100,
+                                      n_ues=n_ues, device=cuda_device)
+    for u in ues:
+        assert u.sync_state == "camped" and u.acq_pci == 1 and u.acq_sfn >= 0
+        assert all(c >= 13 for c in u.cqi_sent[1:]), u.cqi_sent
+        assert u.rrc.idle.si_acquired()
+    assert len({u.crnti for u in ues}) == n_ues
+    assert stats["prach"] == n_ues and stats["pdsch_ko"] == 0 and stats["pusch_ko"] == 0
+    assert stats["dl_ping_rx"] == pings * n_ues and stats["ul_ping_rx"] >= pings * n_ues
+    assert stats["dci_tx"] >= stats["pdsch_tx"] and stats["phich_ack"] > 0
+    assert stats["phich_ack"] + stats["phich_nack"] >= stats["pusch_tx"] - 4
+    assert ok, stats
+    assert turbo_map.launches["map_fused16"] + turbo_map.launches["map_windowed"] > 0

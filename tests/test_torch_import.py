@@ -1,4 +1,5 @@
-"""The port imports with JAX blocked and never imports the JAX package."""
+"""The port imports with JAX and ``cryptography`` blocked and never imports
+the JAX package."""
 
 import pkgutil
 import subprocess
@@ -15,16 +16,25 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "tools.windowed_split", "tools.fused_split", "ops.resampling", "ops.agc", "ops.cfr",
             "ops.block_code", "models.tdd", "models.ue_sync", "models.meas", "models.pmch",
             "models.refsignal_ul", "models.cqi", "models.uci", "models.pusch", "models.pucch",
-            "models.prach", "models.srs")
+            "models.prach", "models.srs", "channel.fading", "channel.impairments",
+            "runtime.lte_air", "apps.nodes", "tools.run_lte",
+            *(f"stack.{m}" for m in (
+                "security", "snow3g_zuc", "asn1", "aper", "rrc_uper", "rrc_msgs", "s1ap_per",
+                "s1ap_ies", "s1ap_msgs", "nas_msgs", "tft", "usim", "pdcp", "pdcp_nr", "rlc_um",
+                "rlc_am", "mac_pdu", "sched", "enb_mac", "ue_mac", "nas_ue", "rrc_idle",
+                "rrc_meas", "rrc_ue", "rrc_enb", "epc")))
 
 _CHECK = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["cryptography"] = None  # the port's AES is its own
 import srsran_4g_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("srsran_4g_tpu", "jaxlib"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("srsran_4g_tpu", "jaxlib", "cryptography")
+             and sys.modules[m] is not None)
 print(len(names), bad)
 """
 
