@@ -73,7 +73,19 @@ read just after:
   then the JAX test's other matrix points (EPA fading at 14 dB, TM4 at 15
   PRB, TDD, 2-CC carrier aggregation, SI on DCI 1C at 50 PRB), each with that
   test's own assertions, and the fading channel's 100 PRB response against
-  the CPU's.
+  the CPU's;
+- the three-process deployment (``srsran_4g_tpu_torch.tools.three_process``:
+  the port's ``apps.srsepc``, ``apps.srsenb`` and one ``apps.srsue`` a UE as
+  OS processes over the native IQ bridge, S1AP over TCP and GTP-U over UDP,
+  the counterpart of the JAX package's tests/test_three_process_e2e.py):
+  the native runtime built here first, then 100 PRB with two UEs for 600
+  TTIs, then that test's TM4, TDD and 2-CC CA points at 6 PRB, each held to
+  that test's criteria on the children's RESULT lines and timed from the
+  eNB's bridges up to the last RESULT line (the attach read off the UEs'
+  ATTACHED lines), with each child's turbo launches; then
+  ``tools.phy_e2e`` at 100 PRB (20 subframes, every CRC); then each turbo
+  kernel the children launched against its plain version at the largest
+  shape they reported.
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
 ``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
@@ -241,6 +253,17 @@ SYS_STAGES = ("LteAirPhy.enb_dl_tx", "LteAirPhy.ue_dl_rx_multi", "pdcch.blind_de
               "LteAirPhy.ue_ul_tx", "LteAirPhy.combine_ul", "LteAirPhy.enb_ul_grid",
               "LteAirPhy.enb_pusch_rx", "pusch.decode", "LteAirPhy.enb_pucch_ack_rx",
               "LteAirPhy.enb_sr_rx", "LteAirPhy.enb_cqi_rx", "LteAirPhy.prach")
+# the three-process deployment (tools/three_process: srsepc, srsenb and one
+# srsue a UE as OS processes over the IQ bridge, S1AP and GTP-U): the JAX
+# test's 2-UE point (tests/test_three_process_e2e.py) at the widest PRB of the
+# reference matrix, then that test's TM4, TDD and 2-CC CA points; phy_e2e at
+# 100 PRB; the seconds a child may take
+PROC_POINTS = (("2 UEs at 100 PRB", dict(prb=100, ues=2, ttis=600)),
+               ("TM4 at 6 PRB", dict(prb=6, tm=4, ttis=480)),
+               ("TDD at 6 PRB", dict(prb=6, tdd=True, ttis=600)),
+               ("2-CC CA at 6 PRB", dict(prb=6, cc=2, ttis=600)))
+PROC_PHY_E2E_PRB, PROC_PHY_E2E_SF = 100, 20
+PROC_TIMEOUT = 300
 SYNC_CFO_TOL = 0.005       # subcarriers, the tracked CFO against the one put in
 SYNC_CFO_HZ_TOL = 50.0     # tracked CFO + measure_cell's residual, against the one put in
 SYNC_RSRP_TOL_DB = 0.5     # the serving CRS is sent at 0 dB
@@ -448,10 +471,11 @@ def launch_counts(names=WRAPPERS) -> dict[str, int]:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count to 0."""
+    """Every kernel's launch count to 0 (and the largest shapes noted)."""
     from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 
     tm.launches.clear()
+    tm.largest.clear()
 
 
 def timed_decodes(cfg, rx, reps: int, decode=None):
@@ -1993,6 +2017,112 @@ def system_path(dev, card: str) -> dict:
                 profile=prof, matrix=matrix)
 
 
+def _note_largest(seen: dict, turbo: dict) -> None:
+    """Keep, for each wrapper, the largest (B, K, L, T) by lanes that a
+    child's ``turbo`` report names."""
+    for w, (b, k, l, t) in turbo["largest"].items():
+        if w not in seen or b * k // l > seen[w][0] * seen[w][1] // seen[w][2]:
+            seen[w] = (b, k, l, t)
+
+
+def phy_e2e_run(card: str, seen: dict) -> dict:
+    """tools/phy_e2e at PROC_PHY_E2E_PRB: an eNB process streams
+    PROC_PHY_E2E_SF PDSCH subframes over the IQ bridge, a UE process decodes
+    them; every CRC must pass and the payload match."""
+    from srsran_4g_tpu_torch.tools.three_process import ROOT, free_base
+
+    port = free_base(0)
+    cmd = [sys.executable, "-m", "srsran_4g_tpu_torch.tools.phy_e2e", "--port", str(port),
+           "--subframes", str(PROC_PHY_E2E_SF), "--prb", str(PROC_PHY_E2E_PRB)]
+    t0 = time.perf_counter()
+    enb = subprocess.Popen(cmd[:3] + ["enb"] + cmd[3:], cwd=ROOT, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    try:
+        ue = subprocess.run(cmd[:3] + ["ue"] + cmd[3:], cwd=ROOT, capture_output=True, text=True,
+                            timeout=PROC_TIMEOUT)
+        enb_out, _ = enb.communicate(timeout=PROC_TIMEOUT)
+    finally:
+        if enb.poll() is None:
+            enb.kill()
+        enb.wait(timeout=30)
+    secs = time.perf_counter() - t0
+    want = f"{PROC_PHY_E2E_SF}/{PROC_PHY_E2E_SF} subframes CRC-OK"
+    if ue.returncode or enb.returncode or want not in ue.stdout \
+            or "payload match=True" not in ue.stdout:
+        raise AssertionError(f"phy_e2e at {PROC_PHY_E2E_PRB} PRB: UE rc {ue.returncode}:\n"
+                             f"{ue.stdout}\n{ue.stderr}\neNB rc {enb.returncode}:\n{enb_out}")
+    turbo = json.loads(next(line for line in ue.stdout.splitlines()
+                            if line.startswith("ue: turbo "))[len("ue: turbo "):])
+    _note_largest(seen, turbo)
+    log(f"[{card}] phy_e2e at {PROC_PHY_E2E_PRB} PRB: {want}, payload match, two processes in "
+        f"{secs:.2f} s; UE turbo {turbo}")
+    return dict(s=secs, launches=turbo["launches"], largest=turbo["largest"])
+
+
+def process_path(dev, card: str) -> dict:
+    """The three-process deployment on the card: the native runtime built in
+    this process first (the kernels are built already), then each point of
+    PROC_POINTS as OS processes through tools/three_process, every criterion
+    of tests/test_three_process_e2e.py asserted on the children's RESULT
+    lines, timed from the eNB's bridges up to the last RESULT (the attach
+    off the UEs' ATTACHED lines), each child's turbo launches read; then
+    phy_e2e at 100 PRB; then each turbo kernel the children launched against
+    its plain version at the largest shape they reported.  Returns each
+    default-route kernel's entry for the kernels line."""
+    from srsran_4g_tpu_torch.runtime import native
+    from srsran_4g_tpu_torch.tools import three_process as tp
+
+    t0 = time.perf_counter()
+    native.load()
+    log(f"process path: native runtime loaded in {time.perf_counter() - t0:.2f} s")
+    seen: dict[str, tuple] = {}
+    runs, full = {}, None
+    for name, kw in PROC_POINTS:
+        log(f"process path: {name}: {kw} on {dev}")
+        r = tp.run(tp.Point(**kw), device="cuda", timeout=PROC_TIMEOUT)
+        checks = tp.criteria(r)
+        children = {**{f"srsue{i}": st for i, st in enumerate(r.ue)}, "srsenb": r.enb}
+        launches = {c: st["turbo"]["launches"] for c, st in children.items()}
+        for st in children.values():
+            _note_largest(seen, st["turbo"])
+        log(f"process path: {name}: UEs {r.ue}; eNB {r.enb}; EPC {r.epc}")
+        if not all(checks.values()):
+            raise AssertionError(f"process path {name}: {checks}")
+        log(f"[{card}] process path {name}: every criterion passed ({', '.join(checks)}); "
+            f"bridges up {r.setup_s:.2f} s after the eNB started; {r.point.ttis} TTIs in "
+            f"{r.wall_s:.2f} s from there to the last RESULT = {r.ttis_per_s:.2f} TTIs/s; "
+            f"attached at "
+            + ", ".join(f"{s:.2f}" for s in r.attach_s) + f" s; turbo launches {launches}")
+        runs[name] = dict(s=r.wall_s, ttis_per_s=r.ttis_per_s, setup_s=r.setup_s,
+                          attach_s=r.attach_s,
+                          launches=launches)
+        if full is None:
+            full = launches
+            total = {w: sum(n.get(w, 0) for n in launches.values()) for w in SYS_WRAPPERS}
+            if not sum(total.values()):
+                raise AssertionError(f"process path {name}: no default-route kernel launched")
+    e2e = phy_e2e_run(card, seen)
+
+    # ---- each kernel the children launched, against its plain version -------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    entries = {}
+    for w, (b, k, l, t) in sorted(seen.items()):
+        if w not in SYS_ROUTE:
+            raise AssertionError(f"process path: the children launched {w}, off the default route")
+        r = check_kernel(SYS_ROUTE[w], gamma_inputs(dev, gen, b, k, l, t), time_it=True)
+        nbytes, adds, maxes = work(w, b, k, l, t)
+        bound_ms, bound_by = bound(nbytes, adds, maxes, "bf16" if w in BF16_WRAPPERS else "f32")
+        entries[w] = dict(
+            launches=sum(n.get(w, 0) for n in full.values()),
+            largest=dict(blocks=b, K=k, L=l, T=t, lanes=b * (k // l)),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        log(f"[{card}] process path {w} at the largest shape the children reported B={b} K={k} "
+            f"L={l} T={t}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}); "
+            f"plain {r['plain_ms']:.2f} ms; max|diff| {r['max_abs_err']}")
+    return dict(entries=entries, runs=runs, phy_e2e=e2e)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2110,6 +2240,7 @@ def main() -> None:
                  "mbsfn_path": (mbsfn_path(dev, gen, card), PMCH_CBS, PMCH_K, PMCH_L)}
     sync_path(dev, gen, card)
     system = system_path(dev, card)
+    process = process_path(dev, card)
     fused16_paths = {}
     for key, (entry, cbs, k_cb, l_win) in new_paths.items():
         nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)
@@ -2149,6 +2280,9 @@ def main() -> None:
             **({"system_path": dict(system["entries"].get(wrapper, dict(launches=0)),
                                     ttis_per_s=system["ttis_per_s"], tti_ms=system["tti_ms"],
                                     profile=system["profile"])}
+               if wrapper in SYS_WRAPPERS else {}),
+            **({"process_path": dict(process["entries"].get(wrapper, dict(launches=0)),
+                                     runs=process["runs"], phy_e2e=process["phy_e2e"])}
                if wrapper in SYS_WRAPPERS else {}),
             **(fused16_paths if route == "map_fused16" else {}),
             **path_device_ms.get(path, {})))

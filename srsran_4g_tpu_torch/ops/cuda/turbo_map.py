@@ -168,6 +168,7 @@ def _launch_windowed(kernel, symbol, chains, gs_ext, gp_ext, a_init, b_init, t_t
     n = gs_ext.shape[1]
     geo = windowed_geometry(n, l_win, t_train, chains, metric_bytes=metric_bytes)
     out = gs_ext.new_empty((l_win, n))
+    _note_shape(kernel, t_train, l_win, nof_b, nof_w)
     _launch(kernel, "turbo_windowed", symbol, 5, 8, gs_ext, gp_ext, a_init, b_init, out, n,
             t_train, l_win, nof_b, nof_w, geo.lanes, geo.every, geo.smem_bytes)
     return out
@@ -386,6 +387,7 @@ def map_fused(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
     n = gs_ext.shape[1]
     geo = fused_geometry(n, l_win, radix)
     out = gs_ext.new_empty((l_win, n))
+    _note_shape("map_fused", t_train, l_win, nof_b, nof_w)
     _launch("map_fused", "turbo_fused", "turbo_map_fused", 5, 9, gs_ext, gp_ext, a_init,
             b_init, out, n, t_train, l_win, nof_b, nof_w, radix, geo.lanes, geo.every,
             geo.smem_bytes)
@@ -456,6 +458,7 @@ def map_fused16(gs_ext: torch.Tensor, gp_ext: torch.Tensor,
     n = gs_ext.shape[1]
     geo = fused16_geometry(n, l_win)
     out = gs_ext.new_empty((l_win, n))
+    _note_shape("map_fused16", t_train, l_win, nof_b, nof_w)
     _launch("map_fused16", "turbo_fused16", "turbo_map_fused16", 5, 7, gs_ext, gp_ext,
             a_init, b_init, out, n, t_train, l_win, nof_b, nof_w, geo.lanes,
             geo.smem_bytes)
@@ -533,6 +536,7 @@ def sweep(gs_ext: torch.Tensor, gp_ext: torch.Tensor, a_init: torch.Tensor,
     n = gs_ext.shape[1]
     astore = gs_ext.new_empty((l_win // 2, 8, n))
     bstore = gs_ext.new_empty((l_win // 2, 8, n))
+    _note_shape("sweep", t_train, l_win, nof_b, nof_w)
     _launch("sweep", "turbo_sweep", "turbo_sweep", 6, 6, gs_ext, gp_ext, a_init, b_init,
             astore, bstore, n, t_train, l_win, nof_b, nof_w, radix)
     return astore, bstore
@@ -639,6 +643,30 @@ def _kernel(source: str, symbol: str, n_ptr: int, n_int: int):
 
 
 launches: collections.Counter = collections.Counter()
+# the largest (B, K, L, T) each half-iteration wrapper launched its kernel at,
+# by lanes (B·K/L), since the dict was last cleared: a process that decodes
+# whatever its traffic brings reports it, so that its kernels can be held
+# against their plain versions at that shape
+largest: dict[str, tuple[int, int, int, int]] = {}
+TURBO_SOURCES = ("turbo_windowed", "turbo_fused16", "turbo_fused", "turbo_sweep",
+                 "turbo_emit")
+
+
+def _note_shape(kernel: str, t_train: int, l_win: int, nof_b: int, nof_w: int) -> None:
+    old = largest.get(kernel)
+    if old is None or nof_b * nof_w > old[0] * old[1] // old[2]:
+        largest[kernel] = (nof_b, l_win * nof_w, l_win, t_train)
+
+
+def load_kernels() -> None:
+    """Build the turbo kernels' sources not yet built (one ``nvcc`` each, all
+    started together) and load their libraries now, so that no decode waits
+    for a build."""
+    from srsran_4g_tpu_torch.ops.cuda import build
+
+    build.build(list(TURBO_SOURCES))
+    for name in TURBO_SOURCES:
+        build.load(name)
 
 
 def _launch(kernel: str, source: str, symbol: str, n_ptr: int, n_int: int,

@@ -11,7 +11,9 @@ and PMCH receivers and the PRACH detector on CUDA against the same on the
 CPU (identical ids, bits, flags, delays and crc_ok), the fading channel's
 100 PRB response against the CPU's (atol 1e-5), and the system path
 (``tools.run_lte`` at 100 PRB with two UEs) held to the criteria of
-``tests/test_run_lte.py::_run`` with the turbo kernels launched.
+``tests/test_run_lte.py::_run`` with the turbo kernels launched, and the
+three-process deployment (``tools.three_process``) at 25 PRB held to the
+criteria of ``tests/test_three_process_e2e.py``.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -29,7 +31,7 @@ from srsran_4g_tpu_torch.models import (chest, enb_dl, grid, pbch, pcfich, pdcch
                                         pdsch_mimo, phich, pmch, prach, pusch, uci, ue_dl)
 from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
-from srsran_4g_tpu_torch.tools import run_lte
+from srsran_4g_tpu_torch.tools import run_lte, three_process
 
 torch.set_num_threads(2)
 
@@ -417,3 +419,17 @@ def test_run_lte_100prb_on_card(cuda_device):
     assert stats["phich_ack"] + stats["phich_nack"] >= stats["pusch_tx"] - 4
     assert ok, stats
     assert turbo_map.launches["map_fused16"] + turbo_map.launches["map_windowed"] > 0
+
+
+def test_three_processes_25prb_on_card(cuda_device):
+    """The three-process deployment (srsepc, srsenb and srsue as OS
+    processes over the IQ bridge, S1AP and GTP-U) at the 25 PRB point of
+    tests/test_three_process_e2e.py, on the card: every criterion of that
+    test, and the default route's turbo kernels launched in the children."""
+    run = three_process.run(three_process.Point(prb=25, ues=1, ttis=360), device="cuda",
+                            timeout=600)
+    checks = three_process.criteria(run)
+    assert all(checks.values()), (checks, run.ue, run.enb, run.epc)
+    launched = sum(st["turbo"]["launches"].get(w, 0) for st in (run.enb, *run.ue)
+                   for w in ("map_fused16", "map_windowed"))
+    assert launched > 0, (run.enb, run.ue)

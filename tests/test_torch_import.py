@@ -18,11 +18,16 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "models.refsignal_ul", "models.cqi", "models.uci", "models.pusch", "models.pucch",
             "models.prach", "models.srs", "channel.fading", "channel.impairments",
             "runtime.lte_air", "apps.nodes", "tools.run_lte",
+            "config", "runtime.tasks", "runtime.native", "runtime.radio", "apps.srsepc",
+            "apps.srsenb", "apps.srsue", "tools.phy_e2e", "tools.three_process",
+            *(f"utils.{m}" for m in ("io", "log", "metrics", "sys_metrics", "checkpoint",
+                                     "crash_handler")),
             *(f"stack.{m}" for m in (
                 "security", "snow3g_zuc", "asn1", "aper", "rrc_uper", "rrc_msgs", "s1ap_per",
                 "s1ap_ies", "s1ap_msgs", "nas_msgs", "tft", "usim", "pdcp", "pdcp_nr", "rlc_um",
                 "rlc_am", "mac_pdu", "sched", "enb_mac", "ue_mac", "nas_ue", "rrc_idle",
-                "rrc_meas", "rrc_ue", "rrc_enb", "epc")))
+                "rrc_meas", "rrc_ue", "rrc_enb", "epc", "gtpu", "gtpc", "mbms_gw", "x2", "e2",
+                "e2ap_per", "nas_eps_codec")))
 
 _CHECK = """
 import importlib, pkgutil, sys

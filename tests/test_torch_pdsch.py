@@ -13,7 +13,7 @@ soft-buffers within rtol 1e-4 / atol 1e-3.
 import dataclasses
 import functools
 
-import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import torch
@@ -49,9 +49,9 @@ def _case(name):
     jcfg = _jax_cfg(tbs, mod)
     rng = np.random.default_rng(tbs)
     bits = rng.integers(0, 2, size=(2, tbs)).astype(np.int8)
-    grid_j = np.asarray(jpdsch.add_crs(jcfg, jpdsch.encode(jcfg, bits)))
+    grid_j = np.asarray(jax.jit(lambda b: jpdsch.add_crs(jcfg, jpdsch.encode(jcfg, b)))(bits))
     rx = _noisy(rng, grid_j, 15.0)
-    out_j = jpdsch.decode(jcfg, jnp.asarray(rx), n_iter=N_ITER)
+    out_j = jax.jit(lambda r: jpdsch.decode(jcfg, r, n_iter=N_ITER))(rx)
     return dict(name=name, jcfg=jcfg,
                 cfg=convert.pdsch_config_from_dict(dataclasses.asdict(jcfg)),
                 bits=bits, grid_j=grid_j, rx=rx, out_j=out_j)
@@ -98,7 +98,8 @@ def test_harq_retransmission_from_jax_softbuffers():
     grid2 = pdsch.add_crs(cfg2, pdsch.encode(cfg2, case["bits"], device="cpu")).numpy()
     rx2 = _noisy(rng, grid2, 3.0)
     soft_j = case["out_j"]["softbuffers"]
-    out_j = jpdsch.decode(jcfg2, jnp.asarray(rx2), softbuffers=soft_j, n_iter=N_ITER)
+    out_j = jax.jit(lambda r, sb: jpdsch.decode(jcfg2, r, softbuffers=sb, n_iter=N_ITER))(
+        rx2, soft_j)
     soft_t = convert.softbuffers_from_numpy(
         {k: np.asarray(v) for k, v in soft_j.items()}, device="cpu")
     out_t = pdsch.decode(cfg2, torch.as_tensor(rx2), softbuffers=soft_t, n_iter=N_ITER)

@@ -14,6 +14,7 @@ equal to the sent bits.
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,8 +134,8 @@ def _mimo_case(tm, pmi):
     jcfg = _mimo_cfg(tm, pmi)
     rng = np.random.default_rng(100 + 3 * pmi + (tm == "tm3"))
     tb0, tb1 = (rng.integers(0, 2, (2, TBS)).astype(np.int8) for _ in range(2))
-    grid_j = np.asarray(jpdsch.add_crs(jcfg.cw[0], jpm.encode(
-        jcfg, jnp.asarray(tb0), jnp.asarray(tb1))))
+    grid_j = np.asarray(jax.jit(lambda b0, b1: jpdsch.add_crs(jcfg.cw[0], jpm.encode(
+        jcfg, b0, b1)))(tb0, tb1))
     rx = _noisy(rng, np.einsum("rt,btsk->brsk", HMAT, grid_j), 0.01)
     cfg = convert.pdsch_config_from_dict(dataclasses.asdict(jcfg))
     return dict(jcfg=jcfg, cfg=cfg, tb0=tb0, tb1=tb1, grid_j=grid_j, rx=rx)
@@ -163,8 +164,8 @@ def _assert_same_decode(out_t, out_j, case):
 def test_mimo_decode_known_channel_matches(tm, pmi):
     case = _mimo_case(tm, pmi)
     h = np.broadcast_to(HMAT[None, :, :, None, None], (2, 2, 2, 14, 300)).astype(np.complex64)
-    out_j = jpm.decode(case["jcfg"], jnp.asarray(case["rx"]), h=jnp.asarray(h),
-                       noise_var=0.01, n_iter=4)
+    out_j = jax.jit(lambda rx, h: jpm.decode(case["jcfg"], rx, h=h, noise_var=0.01, n_iter=4))(
+        case["rx"], h)
     out_t = pdsch_mimo.decode(case["cfg"], _t(case["rx"]), h=_t(h), noise_var=0.01,
                               n_iter=4)
     _assert_same_decode(out_t, out_j, case)
@@ -173,7 +174,7 @@ def test_mimo_decode_known_channel_matches(tm, pmi):
 @pytest.mark.parametrize("tm,pmi", [("tm3", 0), ("tm4", 2)])
 def test_mimo_decode_with_chest_matches(tm, pmi):
     case = _mimo_case(tm, pmi)
-    out_j = jpm.decode(case["jcfg"], jnp.asarray(case["rx"]), n_iter=4)
+    out_j = jax.jit(lambda rx: jpm.decode(case["jcfg"], rx, n_iter=4))(case["rx"])
     out_t = pdsch_mimo.decode(case["cfg"], _t(case["rx"]), n_iter=4)
     _assert_same_decode(out_t, out_j, case)
     _close(out_t["h"], out_j["h"])
@@ -220,13 +221,13 @@ def test_tm2_encode_decode_matches(cell):
     cfg = convert.pdsch_config_from_dict(dataclasses.asdict(jcfg))
     rng = np.random.default_rng(cell.nof_ports)
     bits = rng.integers(0, 2, (2, TBS)).astype(np.int8)
-    grid_j = np.asarray(jpdsch.add_crs(jcfg, jpdsch.encode(jcfg, jnp.asarray(bits))))
+    grid_j = np.asarray(jax.jit(lambda b: jpdsch.add_crs(jcfg, jpdsch.encode(jcfg, b)))(bits))
     grid_t = pdsch.add_crs(cfg, pdsch.encode(cfg, bits, device="cpu"))
     assert grid_t.shape == (2, cell.nof_ports, 14, 300)
     np.testing.assert_allclose(grid_t.numpy(), grid_j, atol=1e-6, rtol=0)
     gains = _c(rng, cell.nof_ports) / 2
     rx = _noisy(rng, np.einsum("p,bpsk->bsk", gains, grid_j), 0.02)
-    out_j = jpdsch.decode(jcfg, jnp.asarray(rx), n_iter=4)
+    out_j = jax.jit(lambda r: jpdsch.decode(jcfg, r, n_iter=4))(rx)
     out_t = pdsch.decode(cfg, _t(rx), n_iter=4)
     np.testing.assert_array_equal(out_t["bits"].numpy(), np.asarray(out_j["bits"]))
     np.testing.assert_array_equal(out_t["crc_ok"].numpy(), np.asarray(out_j["crc_ok"]))

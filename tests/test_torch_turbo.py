@@ -10,6 +10,7 @@ bits).  tests/test_torch_cuda.py holds the CUDA kernel against its plain
 version on a card.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -46,7 +47,7 @@ def test_turbo_encode_bit_identical(k):
 def test_map_windowed_ref_matches_xla(k, l, t, monkeypatch):
     monkeypatch.setenv("TURBO_KERNEL", "v4")
     args = _gammas(np.random.default_rng(k + t), 3, k)
-    want = np.asarray(jturbo._map_windowed(*args, l, t))
+    want = np.asarray(jax.jit(jturbo._map_windowed, static_argnums=(4, 5))(*args, l, t))
     got = turbo._map_windowed(*map(torch.as_tensor, args), l, t).numpy()
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
