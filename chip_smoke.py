@@ -85,7 +85,18 @@ read just after:
   ATTACHED lines), with each child's turbo launches; then
   ``tools.phy_e2e`` at 100 PRB (20 subframes, every CRC); then each turbo
   kernel the children launched against its plain version at the largest
-  shape they reported.
+  shape they reported;
+- the NR PDSCH at 100 MHz (``models/pdsch_nr``: 273 PRB at 30 kHz, type-1
+  DMRS, LDPC through ``models/sch_nr`` and ``ops/ldpc``), 8 slots a call:
+  256QAM (TBS 213176, 26 code blocks of K=8448) and 64QAM (TBS 159880) at
+  30 dB, QPSK (TBS 40000) at 10 dB, and HARQ IR at 16QAM (TBS 83976, rv 0
+  alone failing at 8 dB, rv 2 combined onto its soft-buffers), every CRC and
+  bit checked, timed, profiled (the LDPC decode also alone) and slot 0
+  decoded again on the CPU with identical bits and CRC flags; the NR CRC
+  polynomials at 213176 bits against long division; DCI 1_0 through the
+  38.212 polar chain (``ops/polar_3gpp``) at aggregation levels 1-16, with
+  an RNTI that was not sent failing every CRC.  NR has no kernel of its own:
+  no turbo kernel may launch there.
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
 ``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
@@ -271,6 +282,18 @@ SYNC_SNR_TOL_DB = 1.0    # measure_cell's SNR, against the SINR put in on the CR
 SYNC_EVM_POLY_DB, SYNC_EVM_FFT_DB = -20.0, -40.0
 AGC_FRAMES, AGC_TOL_DB = 20, 1.5
 CFR_DROP_DB, CFR_EVM_DB = 2.0, -15.0
+# The NR PDSCH at 100 MHz (273 PRB, 30 kHz SCS), type-1 DMRS on symbols 2 and
+# 11, NR_BATCH slots a call: (modulation, TBS, SNR dB, expected code
+# blocks).  256QAM: G = 288,288, 26 CBs of K = 8448 (BG1, Z = 384), rate 0.74.
+NR_CARRIER = dict(nof_prb=273, pci=500, scs_khz=30)
+NR_RNTI, NR_SLOT, NR_BATCH, NR_REPS = 0x4601, 7, 8, 3
+NR_POINTS = (("256qam", 213176, 30.0, 26), ("64qam", 159880, 30.0, 19), ("qpsk", 40000, 10.0, 5))
+# HARQ IR: 16QAM at the TBS of MCS 16 on 273 PRB (38.214 table 1), code rate
+# 0.58, 10 CBs; rv 0 alone fails at 8 dB, rv 0 + rv 2 combined decodes.
+NR_HARQ = ("16qam", 83976, 8.0, 10)
+NR_CRC_BITS = 213176  # the NR CRC polynomials at the 256QAM point's TB length
+DCI_AGG = (1, 2, 4, 8, 16)  # E = 108 bits a CCE (PDCCH QPSK, 54 REs)
+DCI_BATCH, DCI_SNR_DB = 64, 10.0
 
 
 def log(msg: str) -> None:
@@ -1015,9 +1038,12 @@ def ctrl_traffic(dev, gen):
     return enb_dl.subframe_to_samples(cell, g), cfg, sent
 
 
-def profile_window(fn, card: str, what: str, host_s: float, reps: int = 3) -> None:
+def profile_window(fn, card: str, what: str, host_s: float, reps: int = 3
+                   ) -> tuple[float, float] | None:
     """Device time, kernel count and idle share of fn() from torch.profiler
-    over ``reps`` calls, against the unprofiled host time ``host_s``."""
+    over ``reps`` calls, against the unprofiled host time ``host_s``; returns
+    (device ms, kernels) a call, or None when the profiler saw no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1029,13 +1055,14 @@ def profile_window(fn, card: str, what: str, host_s: float, reps: int = 3) -> No
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     if busy_ms <= 0:
         log(f"[{card}] profiler saw no device time: {what} idle share not measured")
-        return
+        return None
     n_kernels = sum(e.count for e in kernels) / reps
     log(f"[{card}] {what}: device time {busy_ms:.3f} ms in {n_kernels:.0f} kernels; idle "
         f"share {1 - busy_ms / (host_s * 1e3):.3f} of the unprofiled {host_s * 1e3:.2f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<5d} "
             f"{e.key[:90]}")
+    return busy_ms, n_kernels
 
 
 def control_path(dev, gen, card: str) -> dict[str, int]:
@@ -2123,6 +2150,178 @@ def process_path(dev, card: str) -> dict:
     return dict(entries=entries, runs=runs, phy_e2e=e2e)
 
 
+def crc_ref(bits: np.ndarray, key: str) -> np.ndarray:
+    """CRC by polynomial long division, one bit at a time (MSB first, zero
+    initial state): the reference for the port's CRC matmul."""
+    from srsran_4g_tpu_torch.utils.constants import CRC_POLYS
+
+    poly, order = CRC_POLYS[key]
+    reg = 0
+    for b in bits.tolist() + [0] * order:
+        reg = (reg << 1) | b
+        if reg >> order:
+            reg ^= poly
+    return np.asarray([(reg >> (order - 1 - i)) & 1 for i in range(order)], np.int8)
+
+
+def nr_point(dev, gen, card: str, mod: str, tbs: int, snr_db: float, n_cb: int,
+             harq: bool = False) -> dict:
+    """One NR PDSCH point at 100 MHz: encode → AWGN → decode of NR_BATCH slots
+    on the card (with rv 2 combined onto rv 0's soft-buffers when ``harq``),
+    every CRC and bit checked; timed (best of NR_REPS), profiled, the LDPC
+    decode profiled alone on the LLRs it was given; then slot 0 decoded again
+    on the CPU, bits and CRC flags identical."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import grid_nr, pdsch_nr, sch_nr
+    from srsran_4g_tpu_torch.ops import ldpc
+
+    name = f"harq {mod}" if harq else mod
+    car = grid_nr.NrCarrierConfig(**NR_CARRIER)
+    cfgs = [pdsch_nr.PdschNrConfig(carrier=car, rnti=NR_RNTI, slot=NR_SLOT, mod=mod, tbs=tbs,
+                                   rv=rv) for rv in ((0, 2) if harq else (0,))]
+    seg = cfgs[0].seg
+    if (seg.C, seg.K, seg.bg, seg.z) != (n_cb, 8448, 1, 384):
+        raise AssertionError(f"NR {name}: unexpected segmentation {seg}")
+    log(f"nr path {name}: 273 PRB 30 kHz, {mod}, TBS {tbs}, G {cfgs[0].g_bits}, {seg.C} CBs "
+        f"of K={seg.K} (BG{seg.bg}, Z={seg.z}), code rate {tbs / cfgs[0].g_bits:.3f}, "
+        f"{NR_BATCH} slots, {snr_db} dB" + (", rv 0 then rv 2 combined" if harq else ""))
+    bits = torch.randint(0, 2, (NR_BATCH, tbs), generator=gen, device=dev, dtype=torch.int8)
+    nv = awgn.snr_to_noise_var(snr_db, device=dev)
+    rx = [awgn.awgn(pdsch_nr.encode(c, bits), nv, generator=gen) for c in cfgs]
+    first = pdsch_nr.decode(cfgs[0], rx[0])
+    if harq:
+        if bool(first["crc_ok"].all()):
+            raise AssertionError(f"NR {name}: rv 0 alone passed every slot at {snr_db} dB")
+        log(f"nr path {name}: rv 0 alone: {int(first['crc_ok'].sum())}/{NR_BATCH} slots pass")
+        soft0 = first["softbuffers"]
+
+        def decode():
+            return pdsch_nr.decode(cfgs[1], rx[1], softbuffers=soft0)
+    else:
+        def decode():
+            return pdsch_nr.decode(cfgs[0], rx[0])
+    out = decode()
+    if not bool(out["crc_ok"].all()) or not torch.equal(out["bits"], bits):
+        raise AssertionError(f"NR {name}: CRC {out['crc_ok'].tolist()}, bits equal "
+                             f"{(out['bits'] == bits).all(dim=1).tolist()}")
+    if out["bits"].shape != (NR_BATCH, tbs) or not bool(torch.isfinite(out["noise_var"]).all()):
+        raise AssertionError(f"NR {name}: output of the wrong shape or not finite")
+    times = [stage_time(decode) for _ in range(NR_REPS)]
+    best = min(times)
+    torch.cuda.reset_peak_memory_stats()
+    decode()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{card}] nr path {name}: every CRC passed, bits equal; decode of {NR_BATCH} slots best "
+        f"{best * 1e3:.2f} ms of {NR_REPS} ({', '.join(f'{t * 1e3:.2f}' for t in times)}) = "
+        f"{NR_BATCH / best:.1f} slots/s; peak memory {peak:.2f} GiB")
+    prof = profile_window(decode, card, f"nr path {name} decode", best) or (float("nan"),) * 2
+
+    # the LDPC decode alone, on the LLRs the decode gave it
+    seen = {}
+    real = ldpc.decode
+
+    def spy(llrs, *a, **kw):
+        seen["args"] = (llrs, *a)
+        seen["kw"] = kw
+        return real(llrs, *a, **kw)
+
+    sch_nr.ldpc.decode = spy
+    try:
+        decode()
+    finally:
+        sch_nr.ldpc.decode = real
+    ldpc_s = min(stage_time(lambda: real(*seen["args"], **seen["kw"])) for _ in range(NR_REPS))
+    ldpc_prof = profile_window(lambda: real(*seen["args"], **seen["kw"]), card,
+                               f"nr path {name} LDPC decode alone ({seen['args'][0].shape[0]} "
+                               f"code words)", ldpc_s) or (float("nan"),) * 2
+    log(f"[{card}] nr path {name}: LDPC decode {ldpc_s * 1e3:.2f} ms (host), device "
+        f"{ldpc_prof[0]:.3f} ms in {ldpc_prof[1]:.0f} kernels = {ldpc_prof[0] / prof[0]:.3f} of "
+        f"the decode's device time")
+
+    # slot 0 on the CPU: the same port code, bits and CRC flags identical
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    out_c = pdsch_nr.decode(cfgs[0], rx[0][:1].to(cpu))
+    if harq:
+        out_c = pdsch_nr.decode(cfgs[1], rx[1][:1].to(cpu), softbuffers=out_c["softbuffers"])
+    if not (torch.equal(out_c["bits"], out["bits"][:1].cpu())
+            and torch.equal(out_c["crc_ok"], out["crc_ok"][:1].cpu())):
+        raise AssertionError(f"NR {name}: slot 0 decodes differently on the CPU")
+    log(f"nr path {name}: slot 0 on the CPU: bits and CRC flags identical to the card's "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return dict(mod=mod, tbs=tbs, cbs=seg.C, snr_db=snr_db, slots=NR_BATCH,
+                decode_ms=best * 1e3, slots_per_s=NR_BATCH / best, device_ms=prof[0],
+                kernels=prof[1], idle_share=1 - prof[0] / (best * 1e3), peak_gib=peak,
+                ldpc_ms=ldpc_s * 1e3, ldpc_device_ms=ldpc_prof[0], ldpc_kernels=ldpc_prof[1],
+                ldpc_share=ldpc_prof[0] / prof[0])
+
+
+def dci_path(dev, gen, card: str) -> dict:
+    """DCI 1_0 for 273 PRB through the 38.212 polar chain at every
+    aggregation level: payloads → dci_encode → QPSK → AWGN → soft demod →
+    dci_decode, every CRC passing and payload equal; an RNTI that was not
+    sent fails every CRC; the decode timed and profiled."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import dci_nr
+    from srsran_4g_tpu_torch.ops import modem, polar_3gpp
+
+    a = dci_nr.DciNr10(n_rb=NR_CARRIER["nof_prb"]).nof_bits
+    nv = awgn.snr_to_noise_var(DCI_SNR_DB, device=dev)
+    out = {}
+    for agg in DCI_AGG:
+        e = 108 * agg
+        payload = torch.randint(0, 2, (DCI_BATCH, a), generator=gen, device=dev,
+                                dtype=torch.int8)
+        coded = polar_3gpp.dci_encode(payload, e, NR_RNTI)
+        y = awgn.awgn(modem.modulate("qpsk", coded), nv, generator=gen)
+        llr = modem.demodulate_soft("qpsk", y, nv)
+
+        def decode(rnti=NR_RNTI):
+            return polar_3gpp.dci_decode(llr, a, rnti)
+
+        got = decode()
+        if not bool(got["crc_ok"].all()) or not torch.equal(got["bits"].to(torch.int8), payload):
+            raise AssertionError(f"DCI at L={agg}: CRC {got['crc_ok'].tolist()}")
+        other = decode(NR_RNTI ^ 0x00FF)
+        if bool(other["crc_ok"].any()):
+            raise AssertionError(f"DCI at L={agg}: the unsent RNTI passed "
+                                 f"{int(other['crc_ok'].sum())} CRCs")
+        best = min(stage_time(decode) for _ in range(NR_REPS))
+        prof = profile_window(decode, card, f"dci_decode of {DCI_BATCH} at L={agg}", best) \
+            or (float("nan"),) * 2
+        n = polar_3gpp.dci_sets(a + 24, e)[0]
+        log(f"[{card}] DCI 1_0 ({a} bits) at L={agg} (E={e}, N={1 << n}): {DCI_BATCH}/"
+            f"{DCI_BATCH} CRCs pass, payloads equal, the unsent RNTI fails all; dci_decode "
+            f"{best * 1e3:.2f} ms, {prof[1]:.0f} kernels, device {prof[0]:.3f} ms")
+        out[agg] = dict(E=e, N=1 << n, ms=best * 1e3, kernels=prof[1], device_ms=prof[0])
+    return out
+
+
+def nr_path(dev, card: str) -> dict:
+    """The NR PDSCH at 100 MHz on the card (NR_POINTS, then the HARQ IR
+    point), the NR CRC polynomials at the TB length against long division,
+    then DCI polar coding at every aggregation level.  No turbo kernel may
+    launch: NR uses none."""
+    from srsran_4g_tpu_torch.ops import crc
+
+    reset_counts()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bits = torch.randint(0, 2, (2, NR_CRC_BITS), generator=gen, device=dev, dtype=torch.int8)
+    for key in ("24A", "24C", "11", "6"):
+        got = crc.crc_compute(bits, key).cpu().numpy()
+        want = np.stack([crc_ref(b, key) for b in bits.cpu().numpy()])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"CRC {key} at {NR_CRC_BITS} bits differs from long division")
+    log(f"nr path: CRC 24A, 24C, 11 and 6 of {NR_CRC_BITS}-bit messages on the card equal "
+        f"long division")
+    points = {p[0]: nr_point(dev, gen, card, *p) for p in NR_POINTS}
+    points[f"harq {NR_HARQ[0]}"] = nr_point(dev, gen, card, *NR_HARQ, harq=True)
+    dci = dci_path(dev, gen, card)
+    if any(launch_counts().values()):
+        raise AssertionError(f"nr path launched turbo kernels: {launch_counts()}")
+    return dict(points=points, dci=dci)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2241,6 +2440,8 @@ def main() -> None:
     sync_path(dev, gen, card)
     system = system_path(dev, card)
     process = process_path(dev, card)
+    nr = nr_path(dev, card)
+    log(f"[{card}] nr path: " + json.dumps(nr))
     fused16_paths = {}
     for key, (entry, cbs, k_cb, l_win) in new_paths.items():
         nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)

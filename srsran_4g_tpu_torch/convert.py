@@ -20,13 +20,16 @@ from srsran_4g_tpu_torch.channel.fading import FadingConfig
 from srsran_4g_tpu_torch.channel.impairments import DelayConfig, HstConfig, RlfConfig
 from srsran_4g_tpu_torch.models.chest import ChestConfig
 from srsran_4g_tpu_torch.models.grid import CellConfig
+from srsran_4g_tpu_torch.models.grid_nr import NrCarrierConfig
 from srsran_4g_tpu_torch.models.meas import PowerCtrlConfig, PowerCtrlState
 from srsran_4g_tpu_torch.models.pdsch import PdschConfig
 from srsran_4g_tpu_torch.models.pdsch_mimo import PdschMimoConfig
+from srsran_4g_tpu_torch.models.pdsch_nr import PdschNrConfig
 from srsran_4g_tpu_torch.models.pmch import PmchConfig
 from srsran_4g_tpu_torch.models.prach import PrachConfig
 from srsran_4g_tpu_torch.models.pucch import PucchConfig
 from srsran_4g_tpu_torch.models.pusch import PuschConfig
+from srsran_4g_tpu_torch.models.sch_nr import NrSegm
 from srsran_4g_tpu_torch.models.srs import SrsConfig
 from srsran_4g_tpu_torch.models.uci import UciCfg
 from srsran_4g_tpu_torch.models.ue_sync import UeSyncState
@@ -91,10 +94,27 @@ def power_ctrl_state_from_dict(d: dict) -> PowerCtrlState:
     return PowerCtrlState(**fields)
 
 
+def pdsch_nr_config_from_dict(d: dict) -> PdschNrConfig:
+    """``PdschNrConfig`` from ``dataclasses.asdict`` of the JAX one, with its
+    nested carrier."""
+    fields = dict(d)
+    fields["carrier"] = NrCarrierConfig(**fields["carrier"])
+    return PdschNrConfig(**fields)
+
+
+def nr_segm_from_dict(d: dict) -> NrSegm:
+    """``NrSegm`` from ``dataclasses.asdict`` of the JAX one (its per-CB
+    tuples come back as tuples, so the result hashes like one the port made)."""
+    fields = dict(d)
+    fields["e_bits"] = tuple(fields["e_bits"])
+    fields["data_lens"] = tuple(fields["data_lens"])
+    return NrSegm(**fields)
+
+
 def softbuffers_from_numpy(d: dict, device: torch.device | str | None = None
                            ) -> dict[int, torch.Tensor]:
-    """Per-CB soft-buffers (arrays of (B, 3, K+4)) → float32 tensors on
-    ``device`` (default CUDA)."""
+    """Per-CB soft-buffers (arrays of (B, 3, K+4) for LTE, (B, Nfull*Z) for
+    NR) → float32 tensors on ``device`` (default CUDA)."""
     dev = resolve_device(device)
     return {int(k): torch.tensor(np.asarray(v, dtype=np.float32), device=dev)
             for k, v in d.items()}

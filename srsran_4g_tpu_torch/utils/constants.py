@@ -144,8 +144,11 @@ RM_PERM_CC = np.asarray(
 CRC_POLYS = {
     "24A": (0x1864CFB, 24),
     "24B": (0x1800063, 24),
+    "24C": (0x1B2B117, 24),  # NR PBCH/DCI (TS 38.212 5.1)
     "16": (0x11021, 16),
     "8": (0x19B, 8),
+    "11": (0xE21, 11),       # NR UCI (TS 38.212 5.1)
+    "6": (0x61, 6),          # NR small UCI
 }
 
 # --- Modulation (TS 36.211 §7.1) --------------------------------------------

@@ -21,6 +21,7 @@ faded and TDD airs and the wider cell searches in
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -44,12 +45,24 @@ def _np(x):
 
 
 def _airs(**kw):
-    """(JAX air, port air) from one dict of constructor arguments."""
+    """(JAX air, port air) from one dict of constructor arguments.  The JAX
+    air's per-call-shape functions are compiled for speed of compiling: each
+    runs a few times, so compiling is most of its cost (the same results)."""
     d = {"nof_prb": 6, "snr_db": 200.0, **kw}
     jd = dict(d)
     if d.get("fading") is not None:
         jd["fading"] = j_fad.FadingConfig(**d["fading"])
-    return j_air.LteAirPhy(**jd), convert.lte_air_phy_from_dict(d, device="cpu")
+    j = j_air.LteAirPhy(**jd)
+
+    def fn(k, builder):  # LteAirPhy._fn with the compiler options
+        if k not in j._fns:
+            j._fns[k] = jax.jit(builder(), compiler_options=dict(
+                xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+                xla_cpu_parallel_codegen_split_count=1))
+        return j._fns[k]
+
+    j._fn = fn
+    return j, convert.lte_air_phy_from_dict(d, device="cpu")
 
 
 def _fields(d) -> tuple:

@@ -50,7 +50,11 @@ def _cells(nof_prb, cell_id, cfi=1, nof_ports=1):
 
 def _jit(fn, *args, **kw):
     """fn with its leading and keyword arguments fixed, under jax.jit."""
-    return jax.jit(functools.partial(fn, *args, **kw))
+    # The JAX side runs once per shape, so compiling it is most of its cost:
+    # compile it for speed of compiling (the same results, sooner).
+    return jax.jit(functools.partial(fn, *args, **kw), compiler_options=dict(
+        xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+        xla_cpu_parallel_codegen_split_count=1))
 
 
 def _noise(rng, shape, nv):
@@ -317,6 +321,6 @@ def test_assemble_subframe_with_mib_and_dcis_matches():
         return j_enb.assemble_subframe(jcfg, tb, mib_bits=mib, frame_idx=3,
                                        dcis=[(d1, *jdcis[0][1:]), (d2, *jdcis[1][1:])])
 
-    want = jax.jit(assemble)(jnp.asarray(tb), jnp.asarray(mib), jnp.asarray(d1),
+    want = _jit(assemble)(jnp.asarray(tb), jnp.asarray(mib), jnp.asarray(d1),
                              jnp.asarray(d2))
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-6, rtol=0)

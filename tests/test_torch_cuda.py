@@ -7,8 +7,9 @@ turbo_decode at windows of 512 and 6144 under TURBO_KERNEL v9, bf16, v7 and
 v8 equal to the CPU decode, every probe kernel
 (ops/cuda/probes.py) against its plain version (f32 atol 1e-3, bf16 equal),
 and the PDSCH, TM4 2x2, DL-from-samples, control-channel, PUSCH (with UCI)
-and PMCH receivers and the PRACH detector on CUDA against the same on the
-CPU (identical ids, bits, flags, delays and crc_ok), the fading channel's
+and PMCH receivers, the NR PDSCH and the DCI polar decoder and the PRACH
+detector on CUDA against the same on the CPU (identical ids, bits, flags,
+delays and crc_ok), the NR PDSCH at 273 PRB / 256QAM, the fading channel's
 100 PRB response against the CPU's (atol 1e-5), and the system path
 (``tools.run_lte`` at 100 PRB with two UEs) held to the criteria of
 ``tests/test_run_lte.py::_run`` with the turbo kernels launched, and the
@@ -27,9 +28,10 @@ import pytest
 import torch
 
 from srsran_4g_tpu_torch.channel import awgn, fading
-from srsran_4g_tpu_torch.models import (chest, enb_dl, grid, pbch, pcfich, pdcch, pdsch,
-                                        pdsch_mimo, phich, pmch, prach, pusch, uci, ue_dl)
-from srsran_4g_tpu_torch.ops import turbo
+from srsran_4g_tpu_torch.models import (chest, enb_dl, grid, grid_nr, pbch, pcfich, pdcch,
+                                        pdsch, pdsch_mimo, pdsch_nr, phich, pmch, prach, pusch,
+                                        uci, ue_dl)
+from srsran_4g_tpu_torch.ops import polar_3gpp, turbo
 from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
 from srsran_4g_tpu_torch.tools import run_lte, three_process
 
@@ -241,6 +243,46 @@ def test_pdsch_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), out_cpu["bits"].numpy())
     np.testing.assert_array_equal(out_gpu["crc_ok"].cpu().numpy(), out_cpu["crc_ok"].numpy())
     np.testing.assert_array_equal(out_gpu["bits"].cpu().numpy(), bits)
+
+
+NR_CAR = dict(nof_prb=273, pci=500, scs_khz=30)
+
+
+def test_nr_pdsch_256qam_273prb_on_card(cuda_device):
+    """100 MHz, 256QAM, TBS 213,176 (26 LDPC code blocks of K = 8448) at
+    30 dB: every CRC passes and every bit is the sent one."""
+    cfg = pdsch_nr.PdschNrConfig(carrier=grid_nr.NrCarrierConfig(**NR_CAR), rnti=0x4601,
+                                 slot=7, mod="256qam", tbs=213176)
+    assert (cfg.g_bits, cfg.seg.C, cfg.seg.K) == (288288, 26, 8448)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    bits = torch.randint(0, 2, (2, cfg.tbs), generator=gen, device=cuda_device,
+                         dtype=torch.int8)
+    rx = awgn.awgn(pdsch_nr.encode(cfg, bits), awgn.snr_to_noise_var(30.0), gen)
+    out = pdsch_nr.decode(cfg, rx)
+    assert out["bits"].device.type == "cuda" and bool(out["crc_ok"].all())
+    assert torch.equal(out["bits"], bits)
+
+
+def test_nr_pdsch_and_dci_on_card_match_cpu(cuda_device):
+    """One 273 PRB slot near the 64QAM waterfall and a batch of noisy DCIs:
+    the card and the CPU decide the same bits and CRC flags."""
+    cfg = pdsch_nr.PdschNrConfig(carrier=grid_nr.NrCarrierConfig(**NR_CAR), rnti=0x4601,
+                                 slot=7, mod="64qam", tbs=159880)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    bits = torch.randint(0, 2, (1, cfg.tbs), generator=gen, device=cuda_device,
+                         dtype=torch.int8)
+    rx = awgn.awgn(pdsch_nr.encode(cfg, bits), awgn.snr_to_noise_var(17.0), gen)
+    out_gpu = pdsch_nr.decode(cfg, rx)
+    out_cpu = pdsch_nr.decode(cfg, rx.cpu())
+    assert torch.equal(out_gpu["bits"].cpu(), out_cpu["bits"])
+    assert torch.equal(out_gpu["crc_ok"].cpu(), out_cpu["crc_ok"])
+    payload = torch.randint(0, 2, (32, 44), generator=gen, device=cuda_device, dtype=torch.int8)
+    coded = polar_3gpp.dci_encode(payload, 108, 0x4601).float()
+    llr = (2 * coded - 1) * 2 + torch.randn(coded.shape, generator=gen, device=cuda_device) * 2
+    dci_gpu = polar_3gpp.dci_decode(llr, 44, 0x4601)
+    dci_cpu = polar_3gpp.dci_decode(llr.cpu(), 44, 0x4601)
+    assert torch.equal(dci_gpu["bits"].cpu(), dci_cpu["bits"])
+    assert torch.equal(dci_gpu["crc_ok"].cpu(), dci_cpu["crc_ok"])
 
 
 def test_pusch_with_uci_on_card_matches_cpu(cuda_device):

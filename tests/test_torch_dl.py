@@ -43,7 +43,11 @@ def _np(x):
 def _jit(fn, *args, **kw):
     """The JAX function fn with its leading and keyword arguments fixed,
     under jax.jit; one compiled function per module and arguments."""
-    return jax.jit(functools.partial(fn, *args, **kw))
+    # The JAX side runs once per shape, so compiling it is most of its cost:
+    # compile it for speed of compiling (the same results, sooner).
+    return jax.jit(functools.partial(fn, *args, **kw), compiler_options=dict(
+        xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+        xla_cpu_parallel_codegen_split_count=1))
 
 
 def _grid(rng, shape):
@@ -225,7 +229,7 @@ def test_enb_dl_refuses_pbch_and_pdcch():
     def assemble(bits, mib, dci):
         return j_enb.assemble_subframe(jcfg, bits, mib_bits=mib, dcis=[(dci, 0x50, 2, 0)])
 
-    want = jax.jit(assemble)(jnp.asarray(bits), jnp.asarray(mib), jnp.asarray(dci))
+    want = _jit(assemble)(jnp.asarray(bits), jnp.asarray(mib), jnp.asarray(dci))
     assert float(np.abs(_np(want)).mean()) > 0.1
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=0)
 

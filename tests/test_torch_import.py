@@ -20,6 +20,8 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "runtime.lte_air", "apps.nodes", "tools.run_lte",
             "config", "runtime.tasks", "runtime.native", "runtime.radio", "apps.srsepc",
             "apps.srsenb", "apps.srsue", "tools.phy_e2e", "tools.three_process",
+            "ops.ldpc", "ops.polar", "ops.polar_3gpp", "models.grid_nr", "models.sch_nr",
+            "models.dci_nr", "models.ra_nr", "models.harq_ack_nr", "models.pdsch_nr",
             *(f"utils.{m}" for m in ("io", "log", "metrics", "sys_metrics", "checkpoint",
                                      "crash_handler")),
             *(f"stack.{m}" for m in (

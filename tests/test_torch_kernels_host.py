@@ -292,7 +292,7 @@ def _host_build(cxx, out, name, lib, flags=()):
     src, n_launch = _LAUNCH.subn(launch, src)
     assert n_launch, f"{name}.cu: no kernel launch found"
     (out / f"{lib}.cpp").write_text(src)
-    cmd = [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", *flags,
+    cmd = [cxx, "-std=c++17", "-O0", "-ffp-contract=off", "-shared", "-fPIC", *flags,
            "-I", str(out), "-o", str(out / f"lib{lib}.so"), str(out / f"{lib}.cpp")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
@@ -569,13 +569,22 @@ def test_fused16_geometry_fits_every_window(host_kernels):
         32, 32, 16, 16, 8, 8]
 
 
-def test_fused16_split_variants_build_for_the_host(tmp_path):
+@pytest.fixture(scope="module")
+def fused16_variants(tmp_path_factory):
+    """Every build-time variant of turbo_fused16.cu that tools/fused16_split
+    times, built for the host: the directory of their libraries."""
+    out = tmp_path_factory.mktemp("fused16_variants")
+    cxx = _host_dir(out)
+    _wait({name: _host_build(cxx, out, "turbo_fused16", name, fused16_split.variant_flags(name))
+           for name in fused16_split.VARIANTS})
+    return out
+
+
+def test_fused16_split_variants_build_for_the_host(fused16_variants):
     """Every build-time variant of turbo_fused16.cu that tools/fused16_split
     times still compiles (host build)."""
-    cxx = _host_dir(tmp_path)
-    _wait({name: _host_build(cxx, tmp_path, "turbo_fused16", name,
-                             fused16_split.variant_flags(name))
-           for name in fused16_split.VARIANTS})
+    for name in fused16_split.VARIANTS:
+        assert (fused16_variants / f"lib{name}.so").is_file()
 
 
 # the variants that change only where the dataflow keeps its values (ring
@@ -583,11 +592,8 @@ def test_fused16_split_variants_build_for_the_host(tmp_path):
 # copies need the warp's threads in step, which the host launch does not
 # give, and the other two compute no LLRs
 @pytest.mark.parametrize("variant", ["ring2", "full_stores", "ring4_full_tile64"])
-def test_fused16_variants_match_plain_on_the_host(tmp_path, variant):
-    cxx = _host_dir(tmp_path)
-    _wait({variant: _host_build(cxx, tmp_path, "turbo_fused16", variant,
-                                fused16_split.variant_flags(variant))})
-    fn = getattr(ctypes.CDLL(str(tmp_path / f"lib{variant}.so")), "turbo_map_fused16")
+def test_fused16_variants_match_plain_on_the_host(fused16_variants, variant):
+    fn = getattr(ctypes.CDLL(str(fused16_variants / f"lib{variant}.so")), "turbo_map_fused16")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     b, k, l, t = 3, 5824, 208, 32  # N = 84: a ragged last tile at 32 and 64 lanes

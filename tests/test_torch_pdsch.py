@@ -25,6 +25,12 @@ from srsran_4g_tpu_torch.models import pdsch
 
 torch.set_num_threads(2)
 
+# The JAX side runs once per shape, so compiling it is most of its cost:
+# compile it for speed of compiling (the same results, sooner).
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+    xla_cpu_parallel_codegen_split_count=1))
+
 EST_TOL = dict(rtol=1e-4, atol=1e-5)
 LLR_TOL = dict(rtol=1e-4, atol=1e-3)
 CONFIGS = {"flagship": (2000, "16qam"), "two_groups": (6202, "64qam")}
@@ -49,9 +55,9 @@ def _case(name):
     jcfg = _jax_cfg(tbs, mod)
     rng = np.random.default_rng(tbs)
     bits = rng.integers(0, 2, size=(2, tbs)).astype(np.int8)
-    grid_j = np.asarray(jax.jit(lambda b: jpdsch.add_crs(jcfg, jpdsch.encode(jcfg, b)))(bits))
+    grid_j = np.asarray(_jit(lambda b: jpdsch.add_crs(jcfg, jpdsch.encode(jcfg, b)))(bits))
     rx = _noisy(rng, grid_j, 15.0)
-    out_j = jax.jit(lambda r: jpdsch.decode(jcfg, r, n_iter=N_ITER))(rx)
+    out_j = _jit(lambda r: jpdsch.decode(jcfg, r, n_iter=N_ITER))(rx)
     return dict(name=name, jcfg=jcfg,
                 cfg=convert.pdsch_config_from_dict(dataclasses.asdict(jcfg)),
                 bits=bits, grid_j=grid_j, rx=rx, out_j=out_j)
@@ -98,7 +104,7 @@ def test_harq_retransmission_from_jax_softbuffers():
     grid2 = pdsch.add_crs(cfg2, pdsch.encode(cfg2, case["bits"], device="cpu")).numpy()
     rx2 = _noisy(rng, grid2, 3.0)
     soft_j = case["out_j"]["softbuffers"]
-    out_j = jax.jit(lambda r, sb: jpdsch.decode(jcfg2, r, softbuffers=sb, n_iter=N_ITER))(
+    out_j = _jit(lambda r, sb: jpdsch.decode(jcfg2, r, softbuffers=sb, n_iter=N_ITER))(
         rx2, soft_j)
     soft_t = convert.softbuffers_from_numpy(
         {k: np.asarray(v) for k, v in soft_j.items()}, device="cpu")

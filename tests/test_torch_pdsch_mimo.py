@@ -30,6 +30,12 @@ from srsran_4g_tpu_torch.models import equalizer, mimo, pdsch, pdsch_mimo
 
 torch.set_num_threads(2)
 
+# The JAX side runs once per shape, so compiling it is most of its cost:
+# compile it for speed of compiling (the same results, sooner).
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+    xla_cpu_parallel_codegen_split_count=1))
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 CELL2 = jgrid.CellConfig(nof_prb=25, cell_id=123, cfi=1, nof_ports=2)
 CELL4 = jgrid.CellConfig(nof_prb=25, cell_id=123, cfi=1, nof_ports=4)
@@ -62,7 +68,7 @@ def _noisy(rng, grid, nv):
 def test_layer_map_and_demap(n_cw):
     rng = np.random.default_rng(n_cw)
     cws = [_c(rng, 3, 40) for _ in range(n_cw)]
-    want = jmimo.layer_map([jnp.asarray(c) for c in cws], 2)
+    want = _jit(lambda c: jmimo.layer_map(c, 2))(cws)
     got = mimo.layer_map([_t(c) for c in cws], 2)
     _close(got, want)
     for g, w in zip(mimo.layer_demap(got, n_cw), jmimo.layer_demap(want, n_cw)):
@@ -72,18 +78,18 @@ def test_layer_map_and_demap(n_cw):
 @pytest.mark.parametrize("pmi", [0, 1, 2])
 def test_precode_2x2(pmi):
     x = _c(np.random.default_rng(pmi), 3, 2, 50)
-    _close(mimo.precode_2x2(_t(x), pmi), jmimo.precode_2x2(jnp.asarray(x), pmi))
+    _close(mimo.precode_2x2(_t(x), pmi), _jit(lambda a: jmimo.precode_2x2(a, pmi))(x))
 
 
 def test_cdd_precode_2x2():
     # a long symbol axis: the CDD phase pi*i is rounded to float32 as in JAX
     x = _c(np.random.default_rng(7), 2, 2, 7000)
-    _close(mimo.cdd_precode_2x2(_t(x)), jmimo.cdd_precode_2x2(jnp.asarray(x)))
+    _close(mimo.cdd_precode_2x2(_t(x)), _jit(jmimo.cdd_precode_2x2)(x))
 
 
 def test_sfbc_encode_2():
     x = _c(np.random.default_rng(8), 3, 60)
-    for g, w in zip(mimo.sfbc_encode_2(_t(x)), jmimo.sfbc_encode_2(jnp.asarray(x))):
+    for g, w in zip(mimo.sfbc_encode_2(_t(x)), _jit(jmimo.sfbc_encode_2)(x)):
         _close(g, w)
 
 
@@ -103,7 +109,7 @@ def test_mmse_detect_2x2():
     rng = np.random.default_rng(10)
     y, h = _c(rng, 3, 2, 80), _c(rng, 3, 2, 2, 80)
     nv = (rng.random((3, 1)) * 0.2 + 0.01).astype(np.float32)
-    want = jmimo.mmse_detect_2x2(jnp.asarray(y), jnp.asarray(h), jnp.asarray(nv))
+    want = _jit(jmimo.mmse_detect_2x2)(y, h, nv)
     got = mimo.mmse_detect_2x2(_t(y), _t(h), _t(nv))
     for g, w in zip(got, want):
         _close(g, w)
@@ -112,7 +118,7 @@ def test_mmse_detect_2x2():
 @pytest.mark.parametrize("rank", [1, 2])
 def test_pmi_select_2tx(rank):
     h = _c(np.random.default_rng(11 + rank), 5, 2, 2, 64)
-    pmi_w, m_w = jmimo.pmi_select_2tx(jnp.asarray(h), 0.1, rank=rank)
+    pmi_w, m_w = _jit(lambda a: jmimo.pmi_select_2tx(a, 0.1, rank=rank))(h)
     pmi_g, m_g = mimo.pmi_select_2tx(_t(h), 0.1, rank=rank)
     np.testing.assert_array_equal(pmi_g.numpy(), np.asarray(pmi_w))
     assert pmi_g.dtype == torch.int32
@@ -134,7 +140,7 @@ def _mimo_case(tm, pmi):
     jcfg = _mimo_cfg(tm, pmi)
     rng = np.random.default_rng(100 + 3 * pmi + (tm == "tm3"))
     tb0, tb1 = (rng.integers(0, 2, (2, TBS)).astype(np.int8) for _ in range(2))
-    grid_j = np.asarray(jax.jit(lambda b0, b1: jpdsch.add_crs(jcfg.cw[0], jpm.encode(
+    grid_j = np.asarray(_jit(lambda b0, b1: jpdsch.add_crs(jcfg.cw[0], jpm.encode(
         jcfg, b0, b1)))(tb0, tb1))
     rx = _noisy(rng, np.einsum("rt,btsk->brsk", HMAT, grid_j), 0.01)
     cfg = convert.pdsch_config_from_dict(dataclasses.asdict(jcfg))
@@ -164,7 +170,7 @@ def _assert_same_decode(out_t, out_j, case):
 def test_mimo_decode_known_channel_matches(tm, pmi):
     case = _mimo_case(tm, pmi)
     h = np.broadcast_to(HMAT[None, :, :, None, None], (2, 2, 2, 14, 300)).astype(np.complex64)
-    out_j = jax.jit(lambda rx, h: jpm.decode(case["jcfg"], rx, h=h, noise_var=0.01, n_iter=4))(
+    out_j = _jit(lambda rx, h: jpm.decode(case["jcfg"], rx, h=h, noise_var=0.01, n_iter=4))(
         case["rx"], h)
     out_t = pdsch_mimo.decode(case["cfg"], _t(case["rx"]), h=_t(h), noise_var=0.01,
                               n_iter=4)
@@ -174,7 +180,7 @@ def test_mimo_decode_known_channel_matches(tm, pmi):
 @pytest.mark.parametrize("tm,pmi", [("tm3", 0), ("tm4", 2)])
 def test_mimo_decode_with_chest_matches(tm, pmi):
     case = _mimo_case(tm, pmi)
-    out_j = jax.jit(lambda rx: jpm.decode(case["jcfg"], rx, n_iter=4))(case["rx"])
+    out_j = _jit(lambda rx: jpm.decode(case["jcfg"], rx, n_iter=4))(case["rx"])
     out_t = pdsch_mimo.decode(case["cfg"], _t(case["rx"]), n_iter=4)
     _assert_same_decode(out_t, out_j, case)
     _close(out_t["h"], out_j["h"])
@@ -199,7 +205,7 @@ def test_alamouti_decode_2x1():
     rng = np.random.default_rng(12)
     y, h0, h1 = (_c(rng, 3, 80) for _ in range(3))
     nv = np.float32(0.05)
-    want = jeq.alamouti_decode_2x1(*map(jnp.asarray, (y, h0, h1)), nv)
+    want = _jit(jeq.alamouti_decode_2x1)(y, h0, h1, nv)
     got = equalizer.alamouti_decode_2x1(_t(y), _t(h0), _t(h1), float(nv))
     for g, w in zip(got, want):
         _close(g, w)
@@ -209,7 +215,7 @@ def test_sfbc_fstd_decode_4x1():
     rng = np.random.default_rng(13)
     y, h = _c(rng, 3, 80), _c(rng, 3, 4, 80)
     nv = (rng.random(3) * 0.1 + 0.01).astype(np.float32)
-    want = jeq.sfbc_fstd_decode_4x1(jnp.asarray(y), jnp.asarray(h), jnp.asarray(nv))
+    want = _jit(jeq.sfbc_fstd_decode_4x1)(y, h, nv)
     got = equalizer.sfbc_fstd_decode_4x1(_t(y), _t(h), _t(nv))
     for g, w in zip(got, want):
         _close(g, w)
@@ -221,13 +227,13 @@ def test_tm2_encode_decode_matches(cell):
     cfg = convert.pdsch_config_from_dict(dataclasses.asdict(jcfg))
     rng = np.random.default_rng(cell.nof_ports)
     bits = rng.integers(0, 2, (2, TBS)).astype(np.int8)
-    grid_j = np.asarray(jax.jit(lambda b: jpdsch.add_crs(jcfg, jpdsch.encode(jcfg, b)))(bits))
+    grid_j = np.asarray(_jit(lambda b: jpdsch.add_crs(jcfg, jpdsch.encode(jcfg, b)))(bits))
     grid_t = pdsch.add_crs(cfg, pdsch.encode(cfg, bits, device="cpu"))
     assert grid_t.shape == (2, cell.nof_ports, 14, 300)
     np.testing.assert_allclose(grid_t.numpy(), grid_j, atol=1e-6, rtol=0)
     gains = _c(rng, cell.nof_ports) / 2
     rx = _noisy(rng, np.einsum("p,bpsk->bsk", gains, grid_j), 0.02)
-    out_j = jax.jit(lambda r: jpdsch.decode(jcfg, r, n_iter=4))(rx)
+    out_j = _jit(lambda r: jpdsch.decode(jcfg, r, n_iter=4))(rx)
     out_t = pdsch.decode(cfg, _t(rx), n_iter=4)
     np.testing.assert_array_equal(out_t["bits"].numpy(), np.asarray(out_j["bits"]))
     np.testing.assert_array_equal(out_t["crc_ok"].numpy(), np.asarray(out_j["crc_ok"]))

@@ -66,9 +66,13 @@ def recorder(monkeypatch):
 
 
 def _interpret(call, *args):
+    """The recorded call in interpret mode, jitted: it runs once per shape,
+    so it is compiled for speed of compiling (the same results, sooner)."""
     kernel, kw = call
     real = _Recorder.real
-    return real(kernel, interpret=True, **kw)(*args)
+    return jax.jit(real(kernel, interpret=True, **kw), compiler_options=dict(
+        xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+        xla_cpu_parallel_codegen_split_count=1))(*args)
 
 
 _Recorder.real = pl.pallas_call

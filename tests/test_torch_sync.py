@@ -54,7 +54,11 @@ def _np(x):
 @functools.lru_cache(maxsize=None)
 def _jit(fn, *args, **kw):
     """fn with its leading and keyword arguments fixed, under jax.jit."""
-    return jax.jit(functools.partial(fn, *args, **kw))
+    # The JAX side runs once per shape, so compiling it is most of its cost:
+    # compile it for speed of compiling (the same results, sooner).
+    return jax.jit(functools.partial(fn, *args, **kw), compiler_options=dict(
+        xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+        xla_cpu_parallel_codegen_split_count=1))
 
 
 def _noise(rng, shape, nv):
@@ -161,7 +165,7 @@ def test_detect_frame_type_matches_jax(frame_type):
     found = sync.find_pss(torch.as_tensor(x), cfg.symbol_sz)
     got = tdd.detect_frame_type(torch.as_tensor(x), found["offset"], found["n_id_2"], cfg)
     keys = ("frame_type", "n_id_1", "phase", "metric")
-    want = dict(zip(keys, jax.jit(lambda *a: tuple(
+    want = dict(zip(keys, _jit(lambda *a: tuple(
         getattr(j_tdd.detect_frame_type(*a, cfg=jcfg), k) for k in keys))(
         x, jnp.asarray(_np(found["offset"])), jnp.asarray(_np(found["n_id_2"])))))
     for key in keys[:3]:

@@ -10,6 +10,8 @@ bits).  tests/test_torch_cuda.py holds the CUDA kernel against its plain
 version on a card.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -21,6 +23,12 @@ from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import turbo_map
 
 torch.set_num_threads(2)
+
+# The JAX side runs once per shape, so compiling it is most of its cost:
+# compile it for speed of compiling (the same results, sooner).
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+    xla_cpu_parallel_codegen_split_count=1))
 
 
 def _gammas(rng, b, k):
@@ -34,7 +42,7 @@ def _gammas(rng, b, k):
 @pytest.mark.parametrize("k", [40, 424, 5824])
 def test_turbo_encode_bit_identical(k):
     bits = np.random.default_rng(k).integers(0, 2, size=(3, k)).astype(np.int8)
-    want = np.asarray(jturbo.turbo_encode(bits))
+    want = np.asarray(_jit(jturbo.turbo_encode)(bits))
     got = turbo.turbo_encode(torch.as_tensor(bits)).numpy()
     assert got.dtype == np.int8
     np.testing.assert_array_equal(got, want)
@@ -47,14 +55,14 @@ def test_turbo_encode_bit_identical(k):
 def test_map_windowed_ref_matches_xla(k, l, t, monkeypatch):
     monkeypatch.setenv("TURBO_KERNEL", "v4")
     args = _gammas(np.random.default_rng(k + t), 3, k)
-    want = np.asarray(jax.jit(jturbo._map_windowed, static_argnums=(4, 5))(*args, l, t))
+    want = np.asarray(_jit(jturbo._map_windowed, static_argnums=(4, 5))(*args, l, t))
     got = turbo._map_windowed(*map(torch.as_tensor, args), l, t).numpy()
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
 
 def test_map_full_matches_xla():
     args = _gammas(np.random.default_rng(7), 2, 40)
-    want = np.asarray(jturbo._map_full(*args))
+    want = np.asarray(_jit(jturbo._map_full)(*args))
     got = turbo._map_full(*map(torch.as_tensor, args)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
@@ -64,7 +72,7 @@ def _noisy_codeword(rng, b, k, snr_db, crc=None):
     bits = rng.integers(0, 2, size=(b, n_data)).astype(np.int8)
     if crc:
         bits = jcrc.crc_attach_np(bits, crc).astype(np.int8)
-    d = np.asarray(jturbo.turbo_encode(bits)).astype(np.float64)
+    d = np.asarray(_jit(jturbo.turbo_encode)(bits)).astype(np.float64)
     sigma2 = 10 ** (-snr_db / 10)
     y = (1 - 2 * d) + rng.standard_normal(d.shape) * np.sqrt(sigma2)
     return bits, (-2 * y / sigma2).astype(np.float32)
@@ -76,8 +84,8 @@ def test_turbo_decode_early_stop_matches_xla(monkeypatch):
     # need more halves, so the per-block freeze is exercised
     rng = np.random.default_rng(3)
     _, llr = _noisy_codeword(rng, 4, 512, 0.5, crc="24B")
-    h_x, a_x = jturbo.turbo_decode(llr, n_iter=4, window=64, train=32,
-                                   backend="xla", early_crc="24B")
+    h_x, a_x = _jit(lambda x: jturbo.turbo_decode(x, n_iter=4, window=64, train=32,
+                                                  backend="xla", early_crc="24B"))(llr)
     h_t, a_t = turbo.turbo_decode(torch.as_tensor(llr), n_iter=4, window=64,
                                   train=32, early_crc="24B")
     np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_x))
@@ -88,10 +96,10 @@ def test_turbo_decode_matches_pallas_v9_interpret(monkeypatch):
     monkeypatch.setenv("TURBO_KERNEL", "v9")
     rng = np.random.default_rng(256)
     bits = rng.integers(0, 2, size=(2, 256)).astype(np.int8)
-    d = np.asarray(jturbo.turbo_encode(bits)).astype(np.float32)
+    d = np.asarray(_jit(jturbo.turbo_encode)(bits)).astype(np.float32)
     llr = (2 * d - 1) * 2 + rng.standard_normal(d.shape).astype(np.float32) * 0.7
-    h_p, a_p = jturbo.turbo_decode(llr, n_iter=1, window=64, train=16,
-                                   backend="pallas_interpret")
+    h_p, a_p = _jit(lambda x: jturbo.turbo_decode(x, n_iter=1, window=64, train=16,
+                                                  backend="pallas_interpret"))(llr)
     h_t, a_t = turbo.turbo_decode(torch.as_tensor(llr), n_iter=1, window=64,
                                   train=16)
     a_p = np.asarray(a_p)
@@ -113,15 +121,21 @@ def test_map_windowed_checks_its_inputs():
 # metrics, map_fused16) to the 16-bit bars and the f32 route (v4,
 # map_windowed) to atol 1e-3, both with identical hard bits, against the XLA
 # decoder
+@functools.lru_cache(maxsize=None)
+def _window_512_case():
+    """The LLRs and the XLA decoder's output, shared by both routes."""
+    _, llr = _noisy_codeword(np.random.default_rng(5), 2, 1024, 1.0)
+    h_x, a_x = _jit(lambda x: jturbo.turbo_decode(x, n_iter=2, window=512, train=32,
+                                                  backend="xla"))(llr)
+    return llr, np.asarray(h_x), np.asarray(a_x)
+
+
 @pytest.mark.parametrize("kernel", ["v9", "v4"])
 def test_turbo_decode_window_512_matches_xla(kernel, monkeypatch):
     monkeypatch.setenv("TURBO_KERNEL", kernel)
-    rng = np.random.default_rng(5)
-    _, llr = _noisy_codeword(rng, 2, 1024, 1.0)
-    h_x, a_x = jturbo.turbo_decode(llr, n_iter=2, window=512, train=32, backend="xla")
+    llr, h_x, a_x = _window_512_case()
     h_t, a_t = turbo.turbo_decode(torch.as_tensor(llr), n_iter=2, window=512, train=32)
-    a_x = np.asarray(a_x)
-    np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_x))
+    np.testing.assert_array_equal(h_t.numpy(), h_x)
     if kernel == "v9":
         np.testing.assert_allclose(a_t.numpy(), a_x, atol=2.5, rtol=0)
         assert float(np.abs(a_t.numpy() - a_x).mean()) < 0.5

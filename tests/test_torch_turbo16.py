@@ -22,7 +22,7 @@ and in XLA; atol 1e-3 for v3 (f32).
 
 import functools
 
-import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import torch
@@ -33,6 +33,12 @@ from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
 from srsran_4g_tpu_torch.utils import constants
 
 torch.set_num_threads(2)
+
+# The JAX side runs once per shape, so compiling it is most of its cost:
+# compile it for speed of compiling (the same results, sooner).
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+    xla_cpu_parallel_codegen_split_count=1))
 
 B, K, L, T = 2, 256, 64, 16
 
@@ -59,12 +65,18 @@ def _assert_16bit(got: np.ndarray, want: np.ndarray) -> None:
     assert float(np.abs(got - want).mean()) < 0.5
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_half(kernel, l, t):
+    """JAX's half-iteration in interpret mode, traced under TURBO_KERNEL =
+    kernel and compiled once per shape."""
+    return _jit(lambda *x: jturbo._map_windowed_pl(*x, l, t, interpret=True))
+
+
 def _half(kernel, monkeypatch, g, l=L, t=T):
     """Port and JAX (interpret) half-iteration on the same gammas."""
     monkeypatch.setenv("TURBO_KERNEL", kernel)
     got = turbo._map_windowed(*map(torch.as_tensor, g), l, t).numpy()
-    want = np.asarray(jturbo._map_windowed_pl(*map(jnp.asarray, g), l, t,
-                                              interpret=True))
+    want = np.asarray(_jax_half(kernel, l, t)(*g))
     return got, want
 
 
@@ -105,7 +117,7 @@ def test_v3_route_matches_pallas_v3(monkeypatch):
 def _codeword_llrs():
     rng = np.random.default_rng(256)
     bits = rng.integers(0, 2, size=(B, K)).astype(np.int8)
-    d = np.asarray(jturbo.turbo_encode(bits)).astype(np.float32)
+    d = np.asarray(_jit(jturbo.turbo_encode)(bits)).astype(np.float32)
     return bits, (2 * d - 1) * 1.2 + rng.standard_normal(d.shape).astype(np.float32) * 1.0
 
 
@@ -113,8 +125,8 @@ def _codeword_llrs():
 def test_turbo_decode_matches_pallas_interpret(kernel, monkeypatch):
     monkeypatch.setenv("TURBO_KERNEL", kernel)
     _, llr = _codeword_llrs()
-    h_p, a_p = jturbo.turbo_decode(llr, n_iter=1, window=L, train=T,
-                                   backend="pallas_interpret")
+    h_p, a_p = _jit(lambda x: jturbo.turbo_decode(x, n_iter=1, window=L, train=T,
+                                                  backend="pallas_interpret"))(llr)
     h_t, a_t = turbo.turbo_decode(torch.as_tensor(llr), n_iter=1, window=L, train=T)
     a_p = np.asarray(a_p)
     if kernel == "bf16":

@@ -7,6 +7,7 @@ slices ``gs_winb[t - 1:]`` to one row and broadcasts a single beta over the
 window (ROADMAP Queue 3), so the port is held to the Pallas kernel here.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,6 +24,10 @@ def test_short_training_matches_pallas_v1_interpret(t):
     b, k, l = 2, 256, 64
     args = [(rng.standard_normal(s) * 3).astype(np.float32)
             for s in [(b, k), (b, k), (b, 3), (b, 3)]]
-    want = np.asarray(jturbo._map_windowed_pl(*args, l, t, interpret=True))
+    # jitted and compiled for speed of compiling: it runs once
+    want = np.asarray(jax.jit(
+        lambda *a: jturbo._map_windowed_pl(*a, l, t, interpret=True), compiler_options=dict(
+            xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+            xla_cpu_parallel_codegen_split_count=1))(*args))
     got = turbo._map_windowed(*map(torch.as_tensor, args), l, t).numpy()
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)

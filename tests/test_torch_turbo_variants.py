@@ -14,6 +14,7 @@ kernels against these plain versions on a card.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +31,11 @@ B, K, L, T = 2, 256, 64, 16
 W = K // L
 N = B * W
 TOL = dict(atol=1e-3, rtol=0)
+# The JAX side runs once per shape, so compiling it is most of its cost:
+# compile it for speed of compiling (the same results, sooner).
+_jit = functools.partial(jax.jit, compiler_options=dict(
+    xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+    xla_cpu_parallel_codegen_split_count=1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,12 +52,13 @@ def _port_args():
     return tuple(map(torch.as_tensor, _inputs())) + (T, L, B, W)
 
 
-def _jax_args():
-    return tuple(map(jnp.asarray, _inputs())) + (T, L, B, W)
+def _jax(entry, *arrays, **kw):
+    """A Pallas entry in interpret mode on (arrays, T, L, B, W), jitted."""
+    return _jit(lambda *a: entry(*a, T, L, B, W, interpret=True, **kw))(*arrays)
 
 
 def test_sweep_r4_stores_match_pallas_v5():
-    want_a, want_b = jtm.map_windowed_pallas_v5(*_jax_args(), interpret=True)
+    want_a, want_b = _jax(jtm.map_windowed_pallas_v5, *_inputs())
     got_a, got_b = tm.sweep(*_port_args(), radix=4)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), **TOL)
     np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), **TOL)
@@ -64,7 +71,7 @@ def test_emit_matches_emit_llr_pallas():
     g2p = gp[T:T + L].reshape(L // 2, 2, N)
     ast, bst = ((rng.standard_normal((L // 2, 8, N)) * 4).astype(np.float32)
                 for _ in range(2))
-    want = jtm.emit_llr_pallas(*map(jnp.asarray, (g2s, g2p, ast, bst)), interpret=True)
+    want = _jit(lambda *a: jtm.emit_llr_pallas(*a, interpret=True))(g2s, g2p, ast, bst)
     got = tm.emit(*map(torch.as_tensor, (g2s, g2p, ast, bst)))
     assert got.shape == (L // 2, 2, N)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -92,11 +99,12 @@ class _CapturePallas:
 def test_sweep_r2_and_emit_match_pallas_v6(monkeypatch):
     capture = _CapturePallas(jtm.pl)
     monkeypatch.setattr(jtm, "pl", capture)
-    want = jtm.map_windowed_pallas_v6(*_jax_args(), interpret=True)
+    want, calls = _jit(lambda *a: (jtm.map_windowed_pallas_v6(*a, T, L, B, W, interpret=True),
+                                   capture.outputs))(*_inputs())
     args = _port_args()
     stores = tm.sweep(*args, radix=2)
     # v6's sweep call returns its stores in the (8, C) lane fold: lane = sub·C + col
-    for got, folded in zip(stores, capture.outputs[0]):
+    for got, folded in zip(stores, calls[0]):
         np.testing.assert_allclose(
             got.numpy(), np.asarray(folded).reshape(L // 2, 8, -1)[:, :, :N], **TOL)
     g2s, g2p = (x[T:T + L].view(L // 2, 2, N) for x in args[:2])
@@ -106,8 +114,7 @@ def test_sweep_r2_and_emit_match_pallas_v6(monkeypatch):
 
 @pytest.mark.parametrize("radix", [2, 4])
 def test_map_fused_matches_pallas_v7(radix):
-    want = jtm.map_windowed_pallas_v7(*_jax_args(), interpret=True,
-                                      radix4=radix == 4)
+    want = _jax(jtm.map_windowed_pallas_v7, *_inputs(), radix4=radix == 4)
     got = tm.map_fused(*_port_args(), radix=radix)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -116,9 +123,10 @@ def test_map_fused_matches_pallas_v7(radix):
 def _decode_case():
     rng = np.random.default_rng(256)
     bits = rng.integers(0, 2, size=(B, K)).astype(np.int8)
-    d = np.asarray(jturbo.turbo_encode(bits)).astype(np.float32)
+    d = np.asarray(_jit(jturbo.turbo_encode)(bits)).astype(np.float32)
     llr = (2 * d - 1) * 2 + rng.standard_normal(d.shape).astype(np.float32) * 0.7
-    h_x, a_x = jturbo.turbo_decode(llr, n_iter=2, window=L, train=T, backend="xla")
+    h_x, a_x = _jit(lambda x: jturbo.turbo_decode(x, n_iter=2, window=L, train=T,
+                                                  backend="xla"))(llr)
     return llr, np.asarray(h_x), np.asarray(a_x)
 
 
@@ -163,8 +171,9 @@ def _jax_route(name, l, t, monkeypatch):
         monkeypatch.setattr(jtm, attr, stub(entry))
     k = 2 * l
     z = np.zeros((1, k), np.float32)
-    jturbo._map_windowed_pl(z, z, np.zeros((1, 3), np.float32),
-                            np.zeros((1, 3), np.float32), l, t)
+    # tracing alone reaches the entry the rule picks; nothing is compiled
+    jax.eval_shape(lambda: jturbo._map_windowed_pl(z, z, np.zeros((1, 3), np.float32),
+                                                   np.zeros((1, 3), np.float32), l, t))
     return called[0]
 
 

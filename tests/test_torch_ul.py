@@ -55,7 +55,11 @@ def _np(x):
 @functools.lru_cache(maxsize=None)
 def _jit(fn, *args, **kw):
     """fn with its leading and keyword arguments fixed, under jax.jit."""
-    return jax.jit(functools.partial(fn, *args, **kw))
+    # The JAX side runs once per shape, so compiling it is most of its cost:
+    # compile it for speed of compiling (the same results, sooner).
+    return jax.jit(functools.partial(fn, *args, **kw), compiler_options=dict(
+        xla_backend_optimization_level=0, xla_cpu_use_fusion_emitters=False,
+        xla_cpu_parallel_codegen_split_count=1))
 
 
 def _noise(rng, shape, nv):
