@@ -96,7 +96,21 @@ read just after:
   polynomials at 213176 bits against long division; DCI 1_0 through the
   38.212 polar chain (``ops/polar_3gpp``) at aggregation levels 1-16, with
   an RNTI that was not sent failing every CRC.  NR has no kernel of its own:
-  no turbo kernel may launch there.
+  no turbo kernel may launch there;
+- the NR SA system path (``srsran_4g_tpu_torch.tools.run_nr.run``, the
+  counterpart of the JAX package's tools/run_nr.py) at 100 MHz (273 PRB,
+  30 kHz), 80 slots at 20 dB: SSB search, PRACH, RAR, RRC setup, 5G-AKA
+  registration, PDU session and two ciphered pings, every grant on PDCCH-NR,
+  the data on PDSCH-NR / PUSCH-NR, HARQ-ACKs on PUCCH-NR; held to every
+  criterion of tests/test_run_nr.py with no turbo kernel launched, timed a
+  slot on the host clock (each air call and the PDCCH-NR search apart), then
+  run again under torch.profiler over the attach's slots and 10 slots after
+  the registration; then its channels alone at full width, each against
+  the CPU on the same inputs: PUSCH-NR at 64QAM (TBS 159880, 8 slots) with
+  and without 2 ACK + 20 CSI bits, a PDCCH-NR search of a 273 PRB CORESET
+  over 64 captures (one DCI each at L = 1, 2 or 4; an unsent RNTI finds
+  nothing), PUCCH-NR F2 (20 bits, CRC11 + polar) and F1 over 1024, and the
+  SSB search + PBCH over 128 captures at random delays (exact offsets).
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
 ``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
@@ -294,6 +308,21 @@ NR_HARQ = ("16qam", 83976, 8.0, 10)
 NR_CRC_BITS = 213176  # the NR CRC polynomials at the 256QAM point's TB length
 DCI_AGG = (1, 2, 4, 8, 16)  # E = 108 bits a CCE (PDCCH QPSK, 54 REs)
 DCI_BATCH, DCI_SNR_DB = 64, 10.0
+# The NR SA system path (tools/run_nr) at 100 MHz, held to tests/test_run_nr.py;
+# a second run profiles the attach's slots and NR_SYS_PROFILE_SLOTS slots
+# after the registration.  Then each of its channels alone at full width:
+# PUSCH-NR at the 64QAM point (with and without UCI), PDCCH-NR searches of
+# a 273 PRB CORESET, PUCCH-NR F2/F1 and SSB search + PBCH batches.
+NR_SYS_RUN = dict(n_slots=80, n_pings=2, snr_db=20.0, nof_prb=273)
+NR_SYS_PROFILE_SLOTS = 10
+NR_SYS_STAGES = ("gnb_dl_tx", "ue_dl_rx", "ue_ul_tx", "ue_pucch_ack_tx", "gnb_pucch_ack_rx",
+                 "gnb_ul_rx")
+NR_UCI = dict(o_ack=2, o_csi=20)
+NR_PDCCH_BATCH, NR_PDCCH_SNR_DB = 64, 5.0
+NR_PDCCH_AT = ((1, 3), (2, 20), (4, 36))  # (level, first start CCE) of the DCI a row carries
+NR_PUCCH_BATCH, NR_PUCCH_SNR_DB = 1024, 10.0
+NR_PUCCH_F2 = dict(pci=500, rnti=NR_RNTI, nof_prb=4, nof_symb=2, nof_uci_bits=20)
+NR_SSB_BATCH, NR_SSB_SNR_DB, NR_SSB_PCI = 128, 10.0, 500
 
 
 def log(msg: str) -> None:
@@ -2322,6 +2351,397 @@ def nr_path(dev, card: str) -> dict:
     return dict(points=points, dci=dci)
 
 
+class NrSlotClock:
+    """Hooks on one ``tools.run_nr.run``: the UE MAC's once-a-slot ``tick``
+    stamps each slot's host time (the device synchronised at the boundary),
+    ``RrcNrUe`` is caught to see when its NAS registers, each of
+    ``NrAirPhy``'s calls (NR_SYS_STAGES) and ``pdcch_nr.blind_decode`` are
+    timed a slot, and, with ``profile``, torch.profiler covers the slots up
+    to the registration and NR_SYS_PROFILE_SLOTS slots after it.  The hooks
+    only observe."""
+
+    def __init__(self, profile: bool) -> None:
+        from torch.profiler import ProfilerActivity
+
+        self.acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        self.profile = profile
+        self.stamps: list[float] = []
+        self.ue = None
+        self.reg_slot: int | None = None
+        self.profs: dict[str, tuple] = {}   # name -> (profiler, first slot, end slot)
+        self.stage_s: dict[str, dict[int, float]] = {st: {} for st in NR_SYS_STAGES}
+        self.search_s: list[float] = []
+
+    def __enter__(self):
+        from srsran_4g_tpu_torch.models import pdcch_nr
+        from srsran_4g_tpu_torch.stack import rrc_nr, ue_mac_nr
+        from srsran_4g_tpu_torch.tools import run_nr
+
+        clock = self
+        tick, init = ue_mac_nr.UeMacNr.tick, rrc_nr.RrcNrUe.__init__
+        blind = pdcch_nr.blind_decode
+        self._saved = [(ue_mac_nr.UeMacNr, "tick", tick), (rrc_nr.RrcNrUe, "__init__", init),
+                       (pdcch_nr, "blind_decode", pdcch_nr.blind_decode)]
+        self._saved += [(run_nr.NrAirPhy, st, getattr(run_nr.NrAirPhy, st))
+                        for st in NR_SYS_STAGES]
+
+        def tick_hook(mac, n):
+            clock.slot_boundary()
+            return tick(mac, n)
+
+        def init_hook(ue, *a, **kw):
+            init(ue, *a, **kw)
+            clock.ue = ue
+
+        def search(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return blind(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                clock.search_s.append(time.perf_counter() - t0)
+
+        ue_mac_nr.UeMacNr.tick, rrc_nr.RrcNrUe.__init__ = tick_hook, init_hook
+        pdcch_nr.blind_decode = search
+        for st in NR_SYS_STAGES:
+            setattr(run_nr.NrAirPhy, st, self._timed(st, getattr(run_nr.NrAirPhy, st)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        for name, (_, _, end) in list(self.profs.items()):
+            if end is None:
+                self._stop(name)
+        return False
+
+    def _start(self, name: str) -> None:
+        from torch.profiler import profile
+
+        prof = profile(activities=self.acts)
+        prof.start()
+        self.profs[name] = (prof, len(self.stamps) - 1, None)   # from the slot now starting
+
+    def _stop(self, name: str) -> None:
+        prof, first, _ = self.profs[name]
+        prof.stop()
+        self.profs[name] = (prof, first, len(self.stamps) - 1)  # to the slot before it
+
+    def _timed(self, stage: str, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                slot = len(self.stamps) - 1
+                self.stage_s[stage][slot] = self.stage_s[stage].get(slot, 0.0) + (
+                    time.perf_counter() - t0)
+        return timed
+
+    def slot_boundary(self) -> None:
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        slot = len(self.stamps) - 1   # the slot now starting
+        if self.profile and slot == 0:
+            self._start("attach")
+        if self.reg_slot is None and self.ue is not None and self.ue.nas.state == "REGISTERED":
+            self.reg_slot = slot
+            if self.profile:
+                self._stop("attach")
+                self._start("after")
+        elif (self.profile and self.reg_slot is not None and "after" in self.profs
+              and self.profs["after"][2] is None and slot == self.reg_slot + NR_SYS_PROFILE_SLOTS):
+            self._stop("after")
+
+    def slot_ms(self) -> np.ndarray:
+        return np.diff(self.stamps) * 1e3
+
+    def window(self, name: str, card: str, host_stamps: list[float]) -> dict:
+        """Device ms and kernels a slot over one profiled window, and its idle
+        share against ``host_stamps``: an unprofiled run's slot boundaries
+        (the run is deterministic, so its slots carry the same work)."""
+        from torch.autograd import DeviceType
+
+        prof, first, end = self.profs[name]
+        n = max(end - first, 1)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        host = (host_stamps[end] - host_stamps[first]) * 1e3
+        out = dict(slots=[first, end], device_ms_per_slot=busy / n,
+                   kernels_per_slot=sum(e.count for e in kernels) / n, host_ms_per_slot=host / n,
+                   host_ms_per_slot_profiled=(self.stamps[end] - self.stamps[first]) * 1e3 / n)
+        if busy <= 0:
+            log(f"[{card}] nr system path, {name} window: profiler saw no device time: idle "
+                f"share not measured")
+        else:
+            out["idle_share"] = 1 - busy / host
+        log(f"[{card}] nr system path, slots {first}-{end - 1} ({name}) profiled: device "
+            f"{out['device_ms_per_slot']:.4f} ms in {out['kernels_per_slot']:.1f} kernels a slot"
+            + (f"; idle share {out['idle_share']:.3f} of the unprofiled run's "
+               f"{out['host_ms_per_slot']:.2f} ms a slot" if "idle_share" in out else "")
+            + f" ({out['host_ms_per_slot_profiled']:.2f} ms a slot under the profiler)")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  {e.self_device_time_total / 1e3 / n:8.4f} ms a slot  x{e.count / n:<7.1f} "
+                f"{e.key[:90]}")
+        return out
+
+
+def nr_sys_checks(ok, stats, ue, amf) -> dict[str, bool]:
+    """tests/test_run_nr.py::test_nr_sa_system_e2e's criteria."""
+    from srsran_4g_tpu_torch.stack.usim import UsimConfig
+
+    return {"SSB found": stats["ssb_found"] == 1,
+            "exactly one PRACH": stats.get("prach_detected") == 1,
+            "REGISTERED": ue.nas.state == "REGISTERED",
+            "the AMF registered the IMSI": amf.registered_ues() == [UsimConfig().imsi],
+            "0 PDSCH/PUSCH KO": stats["pdsch_ko"] == 0 and stats["pusch_ko"] == 0,
+            "2 DL and 2 UL pings": stats["dl_ping_rx"] == 2 and stats["ul_ping_rx"] == 2,
+            "HARQ-ACKs on PUCCH-NR": stats["ack_rx"] >= 1,
+            "run_nr's own verdict": ok}
+
+
+def nr_pusch_point(dev, gen, card: str, uci: bool) -> dict:
+    """PUSCH-NR at 273 PRB, 64QAM, TBS 159,880, NR_BATCH slots at 30 dB on
+    the card (with NR_UCI's ACK and CSI multiplexed when ``uci``): every CRC,
+    data, ACK and CSI bit checked, timed and profiled; slot 0 decoded again
+    on the CPU, identical."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import grid_nr, pusch_nr
+
+    mod, tbs, snr_db, _ = NR_POINTS[1]
+    car = grid_nr.NrCarrierConfig(**NR_CARRIER)
+    kw = dict(carrier=car, rnti=NR_RNTI, slot=NR_SLOT, mod=mod, tbs=tbs)
+    cfg = (pusch_nr.PuschNrUciConfig(uci=pusch_nr.NrUciCfg(**NR_UCI), **kw) if uci
+           else pusch_nr.PuschNrConfig(**kw))
+    name = f"PUSCH-NR {mod}" + (f" with UCI ({NR_UCI['o_ack']} ACK, {NR_UCI['o_csi']} CSI)"
+                                if uci else "")
+    bits = torch.randint(0, 2, (NR_BATCH, tbs), generator=gen, device=dev, dtype=torch.int8)
+    ack, csi = (torch.randint(0, 2, (NR_BATCH, NR_UCI[k]), generator=gen, device=dev,
+                              dtype=torch.int8) for k in ("o_ack", "o_csi"))
+    tx = pusch_nr.encode_uci(cfg, bits, ack, csi) if uci else pusch_nr.encode(cfg, bits)
+    rx = awgn.awgn(tx, awgn.snr_to_noise_var(snr_db, device=dev), generator=gen)
+
+    def decode(x=rx):
+        return pusch_nr.decode_uci(cfg, x) if uci else pusch_nr.decode(cfg, x)
+
+    out = decode()
+    want = dict(bits=bits, **(dict(ack_bits=ack, csi_bits=csi) if uci else {}))
+    if not bool(out["crc_ok"].all()) or not all(torch.equal(out[k], v) for k, v in want.items()):
+        raise AssertionError(f"{name}: CRC {out['crc_ok'].tolist()}, "
+                             + ", ".join(f"{k} equal {torch.equal(out[k], v)}"
+                                         for k, v in want.items()))
+    best = min(stage_time(decode) for _ in range(NR_REPS))
+    prof = profile_window(decode, card, f"nr channels: {name} decode of {NR_BATCH}", best) \
+        or (float("nan"),) * 2
+    t0 = time.perf_counter()
+    cpu = decode(rx[:1].cpu())
+    for k in ("crc_ok", *want):
+        if not torch.equal(cpu[k], out[k][:1].cpu()):
+            raise AssertionError(f"{name}: slot 0 on the CPU differs in {k}")
+    log(f"[{card}] nr channels: {name} at 273 PRB, TBS {tbs}, {NR_BATCH} slots, {snr_db} dB: "
+        f"every CRC and bit right; decode best {best * 1e3:.2f} ms of {NR_REPS} = "
+        f"{NR_BATCH / best:.1f} slots/s; slot 0 on the CPU identical "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return dict(ms=best * 1e3, slots_per_s=NR_BATCH / best, device_ms=prof[0], kernels=prof[1])
+
+
+def nr_channels(dev, gen, card: str) -> dict:
+    """The NR SA path's channels alone at full width on the card, each batch
+    from the seeded generator, each held against the CPU run of the same
+    inputs: PUSCH-NR (nr_pusch_point), a PDCCH-NR blind search of a 273 PRB
+    CORESET (NR_PDCCH_BATCH captures, one DCI each at L = 1, 2 or 4, and an
+    RNTI that was not sent, which must find nothing), PUCCH-NR F2 (CRC11 +
+    polar) and F1, and the SSB search + PBCH on captures at random delays."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import dci_nr, pdcch_nr, pucch_nr, ssb, ue_sync_nr
+
+    cpu = torch.device("cpu")
+    out = {"pusch": nr_pusch_point(dev, gen, card, uci=False),
+           "pusch_uci": nr_pusch_point(dev, gen, card, uci=True)}
+
+    # ---- PDCCH-NR: one DCI a capture, the levels in turn --------------------
+    coreset = pdcch_nr.CoresetConfig(nof_prb=NR_CARRIER["nof_prb"], pci=NR_CARRIER["pci"],
+                                     slot=NR_SLOT)
+    a = dci_nr.DciNr10(n_rb=NR_CARRIER["nof_prb"]).nof_bits
+    payload = torch.randint(0, 2, (NR_PDCCH_BATCH, a), generator=gen, device=dev,
+                            dtype=torch.int8)
+    sent = []
+    for i in range(NR_PDCCH_BATCH):
+        agg, first = NR_PDCCH_AT[i % 3]
+        start = (first + agg * (i // 3)) % (coreset.nof_cce - agg + 1) // agg * agg
+        sent.append(pdcch_nr.encode(coreset, payload[i], NR_RNTI, aggregation=agg,
+                                    start_cce=start))
+    rx = awgn.awgn(torch.cat(sent), awgn.snr_to_noise_var(NR_PDCCH_SNR_DB, device=dev),
+                   generator=gen)
+
+    def search(rnti=NR_RNTI, x=rx):
+        return pdcch_nr.blind_decode(coreset, x, rnti=rnti, dci_len=a)
+
+    got, miss = search(), search(NR_RNTI ^ 0x00FF)
+    if not bool(got["found"].all()) or not torch.equal(got["bits"], payload):
+        raise AssertionError(f"PDCCH-NR search: found {int(got['found'].sum())}/"
+                             f"{NR_PDCCH_BATCH}, bits equal {torch.equal(got['bits'], payload)}")
+    if bool(miss["found"].any()):
+        raise AssertionError(f"PDCCH-NR search: the unsent RNTI found {int(miss['found'].sum())}")
+    for rnti, res in ((NR_RNTI, got), (NR_RNTI ^ 0x00FF, miss)):
+        ref = search(rnti, rx.cpu())
+        if not all(torch.equal(ref[k], res[k].cpu()) for k in ("found", "bits", "agg")):
+            raise AssertionError(f"PDCCH-NR search for {rnti:#x}: the CPU differs")
+    best = min(stage_time(search) for _ in range(NR_REPS))
+    prof = profile_window(search, card, f"nr channels: PDCCH-NR search of {NR_PDCCH_BATCH}",
+                          best) or (float("nan"),) * 2
+    one = min(stage_time(lambda: search(x=rx[:1])) for _ in range(NR_REPS))
+    prof1 = profile_window(lambda: search(x=rx[:1]), card, "nr channels: PDCCH-NR search of 1",
+                           one) or (float("nan"),) * 2
+    levels = {int(v): int(n) for v, n in zip(*torch.unique(got["agg"], return_counts=True))}
+    log(f"[{card}] nr channels: PDCCH-NR search of a 273 PRB CORESET ({coreset.nof_cce} CCEs, "
+        f"45 + 22 + 11 candidates) over {NR_PDCCH_BATCH} captures at {NR_PDCCH_SNR_DB} dB: "
+        f"every DCI found with its bits (levels found {levels}), the unsent RNTI found none, "
+        f"the CPU identical; {best * 1e3:.2f} ms a batch, {one * 1e3:.2f} ms for one capture")
+    out["pdcch"] = dict(ms=best * 1e3, device_ms=prof[0], kernels=prof[1], ms_one=one * 1e3,
+                        device_ms_one=prof1[0], kernels_one=prof1[1], levels=levels)
+
+    # ---- PUCCH-NR F2 (CRC11 + polar) and F1 ---------------------------------
+    f2 = pucch_nr.PucchNrF2Config(**NR_PUCCH_F2)
+    uci = torch.randint(0, 2, (NR_PUCCH_BATCH, f2.nof_uci_bits), generator=gen, device=dev,
+                        dtype=torch.int8)
+    nv = awgn.snr_to_noise_var(NR_PUCCH_SNR_DB, device=dev)
+    rx2 = awgn.awgn(pucch_nr.f2_encode(f2, uci), nv, generator=gen)
+    f1 = pucch_nr.PucchNrF1Config(pci=NR_CARRIER["pci"], nof_symb=4)
+    ack = torch.randint(0, 2, (NR_PUCCH_BATCH, 1), generator=gen, device=dev, dtype=torch.int8)
+    rx1 = awgn.awgn(pucch_nr.f1_encode(f1, ack), nv, generator=gen)
+    r2, r1 = pucch_nr.f2_decode(f2, rx2), pucch_nr.f1_decode(f1, rx1)
+    if not (bool(r2["ok"].all()) and torch.equal(r2["bits"], uci)
+            and torch.equal(r1["bits"], ack)):
+        raise AssertionError(f"PUCCH-NR: F2 CRC {int(r2['ok'].sum())}/{NR_PUCCH_BATCH}, bits "
+                             f"{torch.equal(r2['bits'], uci)}; F1 {torch.equal(r1['bits'], ack)}")
+    c2, c1 = pucch_nr.f2_decode(f2, rx2.cpu()), pucch_nr.f1_decode(f1, rx1.cpu())
+    if not (torch.equal(c2["bits"], r2["bits"].cpu()) and torch.equal(c2["ok"], r2["ok"].cpu())
+            and torch.equal(c1["bits"], r1["bits"].cpu())):
+        raise AssertionError("PUCCH-NR: the CPU differs")
+    best2 = min(stage_time(lambda: pucch_nr.f2_decode(f2, rx2)) for _ in range(NR_REPS))
+    prof2 = profile_window(lambda: pucch_nr.f2_decode(f2, rx2), card,
+                           f"nr channels: PUCCH-NR F2 decode of {NR_PUCCH_BATCH}", best2) \
+        or (float("nan"),) * 2
+    log(f"[{card}] nr channels: PUCCH-NR F2 ({f2.nof_uci_bits} bits, E {f2.e_bits}) and F1 "
+        f"ACKs, {NR_PUCCH_BATCH} each at {NR_PUCCH_SNR_DB} dB: every CRC and bit right, the "
+        f"CPU identical; F2 decode {best2 * 1e3:.2f} ms")
+    out["pucch_f2"] = dict(ms=best2 * 1e3, device_ms=prof2[0], kernels=prof2[1])
+
+    # ---- SSB search + PBCH on captures at random delays ---------------------
+    mib = torch.randint(0, 2, (NR_SSB_BATCH, 32), generator=gen, device=dev, dtype=torch.int8)
+    t = ue_sync_nr.ssb_to_samples(ssb.assemble(ssb.SsbConfig(pci=NR_SSB_PCI), mib))
+    delay = torch.randint(0, 600, (NR_SSB_BATCH,), generator=gen, device=dev)
+    n = 600 + t.shape[1] + 200
+    pos = delay[:, None] + torch.arange(t.shape[1], device=dev)[None]
+    stream = torch.zeros((NR_SSB_BATCH, n), dtype=torch.complex64, device=dev)
+    stream.scatter_(1, pos, t)
+    sig = float(t.abs().square().mean())
+    cap = awgn.awgn(stream, sig * float(awgn.snr_to_noise_var(NR_SSB_SNR_DB, device=dev)),
+                    generator=gen)
+
+    def cell_search(x=cap):
+        found = ue_sync_nr.pss_time_correlate(x, 256)
+        grid = ue_sync_nr.extract_ssb_grid(x, found["offset"], 256, 18)
+        return found, ssb.search_pci(grid), ssb.decode_pbch(ssb.SsbConfig(pci=NR_SSB_PCI), grid)
+
+    found, pci, pbch = cell_search()
+    if not (torch.equal(found["offset"], delay + 18) and bool((pci["pci"] == NR_SSB_PCI).all())
+            and bool(pbch["crc_ok"].all()) and torch.equal(pbch["payload"], mib)):
+        raise AssertionError(f"SSB search: offsets {torch.equal(found['offset'], delay + 18)}, "
+                             f"PCI {int((pci['pci'] == NR_SSB_PCI).sum())}, CRC "
+                             f"{int(pbch['crc_ok'].sum())}/{NR_SSB_BATCH}")
+    f_c, p_c, b_c = cell_search(cap.cpu())
+    if not (torch.equal(f_c["offset"], found["offset"].cpu())
+            and torch.equal(p_c["pci"], pci["pci"].cpu())
+            and torch.equal(b_c["payload"], pbch["payload"].cpu())
+            and torch.equal(b_c["crc_ok"], pbch["crc_ok"].cpu())
+            and float((f_c["metric"] - found["metric"].cpu()).abs().max()) <= 1e-3):
+        raise AssertionError("SSB search: the CPU differs")
+    best3 = min(stage_time(cell_search) for _ in range(NR_REPS))
+    prof3 = profile_window(cell_search, card, f"nr channels: SSB search + PBCH of "
+                           f"{NR_SSB_BATCH}", best3) or (float("nan"),) * 2
+    log(f"[{card}] nr channels: SSB search + PBCH over {NR_SSB_BATCH} captures of {n} samples "
+        f"at {NR_SSB_SNR_DB} dB: every offset exact, PCI {NR_SSB_PCI}, MIB CRC and bits right, "
+        f"the CPU identical (metric within 1e-3); {best3 * 1e3:.2f} ms a batch")
+    out["ssb"] = dict(ms=best3 * 1e3, device_ms=prof3[0], kernels=prof3[1])
+    return out
+
+
+def nr_system_path(dev, card: str) -> dict:
+    """The port's tools/run_nr.run at 100 MHz (NR_SYS_RUN) on the card, held
+    to tests/test_run_nr.py's criteria with no turbo kernel launched, three
+    times: cold (the first calls' costs in its wall time), warm (slots/s, the
+    slot's host ms, each air call and the PDCCH-NR search a DL slot), and
+    under torch.profiler over the attach's slots and NR_SYS_PROFILE_SLOTS
+    slots after the registration (device ms and kernels a slot; idle share
+    against the warm run's host time of the same slots); the peak memory;
+    then the path's channels alone at full width (nr_channels)."""
+    from srsran_4g_tpu_torch.tools import run_nr
+
+    run = dict(NR_SYS_RUN)
+    log(f"nr system path: run_nr.run({', '.join(f'{k}={v}' for k, v in run.items())}) on {dev}, "
+        f"cold, warm, then profiled")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    clocks, walls = [], []
+    for profiled in (False, False, True):
+        with NrSlotClock(profile=profiled) as clock:
+            t0 = time.perf_counter()
+            ok, stats, ue, amf = run_nr.run(**run, device=dev)
+            clock.slot_boundary()   # the end of the last slot
+            walls.append(time.perf_counter() - t0)
+        checks = nr_sys_checks(ok, stats, ue, amf)
+        checks["no turbo kernel launched"] = not any(launch_counts().values())
+        if not all(checks.values()):
+            raise AssertionError(f"nr system path: {checks}; {stats}")
+        if clocks and (stats != clocks[0][1] or clock.reg_slot != clocks[0][0].reg_slot):
+            raise AssertionError(f"nr system path: runs differ: {stats}, {clocks[0][1]}")
+        clocks.append((clock, stats))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"nr system path: stats {stats}; registered at slot {clock.reg_slot}; every "
+        f"criterion passed in each run ({', '.join(checks)})")
+    (cold, _), (warm, _), (pclock, _) = clocks
+    ms = warm.slot_ms()
+    loop_s = warm.stamps[-1] - warm.stamps[0]
+    dl_slots = len(warm.stage_s["gnb_dl_tx"])
+    stages = {st: sum(v.values()) * 1e3 / len(ms) for st, v in warm.stage_s.items()}
+    search_ms = np.asarray(warm.search_s) * 1e3
+    log(f"[{card}] nr system path: {run['n_slots']} slots: cold run {walls[0]:.2f} s "
+        f"({run['n_slots'] / walls[0]:.2f} slots/s; its slot loop "
+        f"{cold.stamps[-1] - cold.stamps[0]:.2f} s), warm run {walls[1]:.2f} s = "
+        f"{run['n_slots'] / walls[1]:.2f} slots/s, its slot loop {loop_s:.2f} s = "
+        f"{run['n_slots'] / loop_s:.2f} slots/s (the air's 2,000 at 30 kHz); warm host ms a "
+        f"slot: median {np.median(ms):.3f}, p90 {np.percentile(ms, 90):.2f}, max "
+        f"{ms.max():.2f}; {dl_slots} slots carried a DL grid; peak memory {peak:.3f} GiB")
+    log(f"[{card}] nr system path, warm host ms a slot by air call (mean over the run): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; the rest (stack, MAC, RLC, NAS, AMF) {np.mean(ms) - sum(stages.values()):.3f}")
+    log(f"[{card}] nr system path: {len(search_ms)} PDCCH-NR searches "
+        f"({len(search_ms) / max(dl_slots, 1):.2f} a DL slot), median {np.median(search_ms):.2f} "
+        f"ms, {search_ms.sum() / max(dl_slots, 1):.2f} ms a DL slot")
+    prof = {name: pclock.window(name, card, warm.stamps) for name in pclock.profs}
+    channels = nr_channels(dev, torch.Generator(device=dev).manual_seed(SEED), card)
+    if any(launch_counts().values()):
+        raise AssertionError(f"nr system path launched turbo kernels: {launch_counts()}")
+    search_kernels = channels["pdcch"]["kernels_one"]
+    log(f"[{card}] nr system path: a PDCCH-NR search of one capture takes {search_kernels:.0f} "
+        f"kernels ({channels['pdcch']['device_ms_one']:.3f} device ms), "
+        f"{search_kernels * len(search_ms) / max(dl_slots, 1):.0f} a DL slot")
+    return dict(cold_s=walls[0], warm_s=walls[1], slots_per_s=run["n_slots"] / walls[1],
+                loop_slots_per_s=run["n_slots"] / loop_s, reg_slot=warm.reg_slot,
+                slot_ms=dict(median=float(np.median(ms)), p90=float(np.percentile(ms, 90)),
+                             max=float(ms.max())),
+                dl_slots=dl_slots, stage_ms=stages, peak_gib=peak,
+                search=dict(n=len(search_ms), ms_median=float(np.median(search_ms)),
+                            ms_per_dl_slot=float(search_ms.sum() / max(dl_slots, 1)),
+                            kernels=search_kernels),
+                profile=prof, channels=channels)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2442,6 +2862,8 @@ def main() -> None:
     process = process_path(dev, card)
     nr = nr_path(dev, card)
     log(f"[{card}] nr path: " + json.dumps(nr))
+    nr_system = nr_system_path(dev, card)
+    log(f"[{card}] nr system path: " + json.dumps(nr_system))
     fused16_paths = {}
     for key, (entry, cbs, k_cb, l_win) in new_paths.items():
         nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)

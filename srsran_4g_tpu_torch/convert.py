@@ -24,13 +24,17 @@ from srsran_4g_tpu_torch.models.grid_nr import NrCarrierConfig
 from srsran_4g_tpu_torch.models.meas import PowerCtrlConfig, PowerCtrlState
 from srsran_4g_tpu_torch.models.pdsch import PdschConfig
 from srsran_4g_tpu_torch.models.pdsch_mimo import PdschMimoConfig
+from srsran_4g_tpu_torch.models.pdcch_nr import CoresetConfig
 from srsran_4g_tpu_torch.models.pdsch_nr import PdschNrConfig
 from srsran_4g_tpu_torch.models.pmch import PmchConfig
 from srsran_4g_tpu_torch.models.prach import PrachConfig
 from srsran_4g_tpu_torch.models.pucch import PucchConfig
+from srsran_4g_tpu_torch.models.pucch_nr import PucchNrF0Config, PucchNrF1Config, PucchNrF2Config
 from srsran_4g_tpu_torch.models.pusch import PuschConfig
+from srsran_4g_tpu_torch.models.pusch_nr import NrUciCfg, PuschNrConfig, PuschNrUciConfig
 from srsran_4g_tpu_torch.models.sch_nr import NrSegm
 from srsran_4g_tpu_torch.models.srs import SrsConfig
+from srsran_4g_tpu_torch.models.ssb import SsbConfig
 from srsran_4g_tpu_torch.models.uci import UciCfg
 from srsran_4g_tpu_torch.models.ue_sync import UeSyncState
 from srsran_4g_tpu_torch.runtime.lte_air import LteAirPhy
@@ -100,6 +104,39 @@ def pdsch_nr_config_from_dict(d: dict) -> PdschNrConfig:
     fields = dict(d)
     fields["carrier"] = NrCarrierConfig(**fields["carrier"])
     return PdschNrConfig(**fields)
+
+
+def pusch_nr_config_from_dict(d: dict) -> PuschNrConfig | PuschNrUciConfig:
+    """``PuschNrConfig`` from ``dataclasses.asdict`` of the JAX one, or
+    ``PuschNrUciConfig`` when the dict has a ``uci`` key (its nested
+    ``NrUciCfg`` dict, or None)."""
+    fields = dict(d)
+    fields["carrier"] = NrCarrierConfig(**fields["carrier"])
+    if "uci" not in fields:
+        return PuschNrConfig(**fields)
+    if fields["uci"] is not None:
+        fields["uci"] = NrUciCfg(**fields["uci"])
+    return PuschNrUciConfig(**fields)
+
+
+def pucch_nr_f0_config_from_dict(d: dict) -> PucchNrF0Config:
+    return PucchNrF0Config(**d)
+
+
+def pucch_nr_f1_config_from_dict(d: dict) -> PucchNrF1Config:
+    return PucchNrF1Config(**d)
+
+
+def pucch_nr_f2_config_from_dict(d: dict) -> PucchNrF2Config:
+    return PucchNrF2Config(**d)
+
+
+def coreset_config_from_dict(d: dict) -> CoresetConfig:
+    return CoresetConfig(**d)
+
+
+def ssb_config_from_dict(d: dict) -> SsbConfig:
+    return SsbConfig(**d)
 
 
 def nr_segm_from_dict(d: dict) -> NrSegm:

@@ -131,10 +131,10 @@ def estimate(cfg: PdschNrConfig, rx_grid: torch.Tensor) -> dict:
     return dict(h=h.to(torch.complex64), noise_var=noise_var.to(torch.float32))
 
 
-def decode(cfg: PdschNrConfig, rx_grid: torch.Tensor,
-           softbuffers: dict | None = None, n_iter: int = 12) -> dict:
-    """(B, 14, nre) received grid → dict(bits (B, tbs) int8, crc_ok (B,),
-    softbuffers (per CB, for a HARQ retransmission), noise_var (B,))."""
+def soft_bits(cfg: PdschNrConfig, rx_grid: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """(B, 14, nre) received grid → (descrambled LLRs (B, G), the channel
+    estimate of ``estimate``): equalisation and soft demodulation of the
+    data REs."""
     b = rx_grid.shape[0]
     tab = _tables(cfg, rx_grid.device)
     est = estimate(cfg, rx_grid)
@@ -143,6 +143,13 @@ def decode(cfg: PdschNrConfig, rx_grid: torch.Tensor,
     h = est["h"].reshape(b, -1)[:, idx]
     x, eff_nv = equalizer.equalize_single(y, h, est["noise_var"][:, None])
     llr = modem.demodulate_soft(cfg.mod, x, eff_nv).reshape(b, cfg.g_bits)
-    llr = scrambling.descramble_llrs(llr, tab["seq"])
+    return scrambling.descramble_llrs(llr, tab["seq"]), est
+
+
+def decode(cfg: PdschNrConfig, rx_grid: torch.Tensor,
+           softbuffers: dict | None = None, n_iter: int = 12) -> dict:
+    """(B, 14, nre) received grid → dict(bits (B, tbs) int8, crc_ok (B,),
+    softbuffers (per CB, for a HARQ retransmission), noise_var (B,))."""
+    llr, est = soft_bits(cfg, rx_grid)
     bits, ok, soft = sch_nr.decode(cfg.seg, llr, softbuffers=softbuffers, n_iter=n_iter)
     return dict(bits=bits, crc_ok=ok, softbuffers=soft, noise_var=est["noise_var"])

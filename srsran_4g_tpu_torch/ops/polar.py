@@ -70,6 +70,23 @@ def encode_info(bits: torch.Tensor, n_log: int) -> torch.Tensor:
     return encode(u)
 
 
+def fold(llrs: torch.Tensor, n: int) -> torch.Tensor:
+    """Undo repetition rate matching: (..., E) LLRs, where transmitted bit j
+    carries codeword position j mod n, → (..., n) sums.  JAX writes this as
+    ``zeros.at[..., arange(E) % n].add(llrs)``, a scatter with repeated
+    indices; ``index_add`` on CUDA sums repeats with atomics in no fixed
+    order, so here the E positions are cut into passes of n distinct
+    positions, added one pass at a time in transmit order onto zeros: the
+    same sums in every bit on the CPU and the card."""
+    acc = llrs.new_zeros(llrs.shape[:-1] + (n,), dtype=torch.float32)
+    x = llrs.to(torch.float32)
+    for s in range(0, x.shape[-1], n):
+        part = x[..., s:s + n]
+        w = part.shape[-1]
+        acc = part + acc if w == n else torch.cat([acc[..., :w] + part, acc[..., w:]], dim=-1)
+    return acc
+
+
 def _f(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Check-node combine (min-sum): sign(a)·sign(b)·min(|a|, |b|).  The sign
     of a·b is that product's sign (IEEE keeps it through underflow and

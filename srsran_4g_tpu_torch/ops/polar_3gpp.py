@@ -121,10 +121,7 @@ def rm_rx(llr_e: torch.Tensor, n_log: int, k: int) -> torch.Tensor:
     big_n = 1 << n_log
     b, e = llr_e.shape
     if e >= big_n:
-        y = llr_e.new_zeros((b, big_n))
-        for s in range(0, e, big_n):
-            chunk = llr_e[:, s:s + big_n]
-            y[:, :chunk.shape[-1]] += chunk
+        y = polar.fold(llr_e, big_n)
     elif 16 * k <= 7 * e:
         y = torch.cat([llr_e.new_zeros((b, big_n - e)), llr_e], dim=-1)
     else:

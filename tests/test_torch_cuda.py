@@ -14,7 +14,11 @@ delays and crc_ok), the NR PDSCH at 273 PRB / 256QAM, the fading channel's
 (``tools.run_lte`` at 100 PRB with two UEs) held to the criteria of
 ``tests/test_run_lte.py::_run`` with the turbo kernels launched, and the
 three-process deployment (``tools.three_process``) at 25 PRB held to the
-criteria of ``tests/test_three_process_e2e.py``.
+criteria of ``tests/test_three_process_e2e.py``; the NR SA system path
+(``tools.run_nr``) at 273 PRB held to the criteria of
+``tests/test_run_nr.py`` with no turbo kernel launched, and the PDCCH-NR
+blind search over a 273 PRB CORESET (one batched polar decode a level)
+equal on the card and the CPU bit for bit.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -28,12 +32,12 @@ import pytest
 import torch
 
 from srsran_4g_tpu_torch.channel import awgn, fading
-from srsran_4g_tpu_torch.models import (chest, enb_dl, grid, grid_nr, pbch, pcfich, pdcch,
-                                        pdsch, pdsch_mimo, pdsch_nr, phich, pmch, prach, pusch,
-                                        uci, ue_dl)
+from srsran_4g_tpu_torch.models import (chest, dci_nr, enb_dl, grid, grid_nr, pbch, pcfich,
+                                        pdcch, pdcch_nr, pdsch, pdsch_mimo, pdsch_nr, phich, pmch,
+                                        prach, pusch, uci, ue_dl)
 from srsran_4g_tpu_torch.ops import polar_3gpp, turbo
 from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
-from srsran_4g_tpu_torch.tools import run_lte, three_process
+from srsran_4g_tpu_torch.tools import run_lte, run_nr, three_process
 
 torch.set_num_threads(2)
 
@@ -475,3 +479,47 @@ def test_three_processes_25prb_on_card(cuda_device):
     launched = sum(st["turbo"]["launches"].get(w, 0) for st in (run.enb, *run.ue)
                    for w in ("map_fused16", "map_windowed"))
     assert launched > 0, (run.enb, run.ue)
+
+
+def test_run_nr_273prb_on_card(cuda_device):
+    """The NR SA system path at 100 MHz (273 PRB, 30 kHz) on the card: every
+    criterion of tests/test_run_nr.py; NR launches no turbo kernel."""
+    turbo_map.launches.clear()
+    ok, stats, ue, amf = run_nr.run(n_slots=80, n_pings=2, snr_db=20.0, nof_prb=273,
+                                    device=cuda_device)
+    assert stats["ssb_found"] == 1 and stats["prach_detected"] == 1
+    assert ue.nas.state == "REGISTERED"
+    assert stats["pdsch_ko"] == 0 and stats["pusch_ko"] == 0
+    assert stats["dl_ping_rx"] == 2 and stats["ul_ping_rx"] == 2
+    assert stats["ack_rx"] >= 1
+    assert ok, stats
+    assert not any(turbo_map.launches.values())
+
+
+def test_pdcch_nr_blind_search_on_card_matches_cpu(cuda_device):
+    """A 273 PRB CORESET (45 CCEs) carrying one DCI at each of L = 1, 2 and 4
+    in 16 captures at 5 dB: the batched search on the card equals the CPU's
+    in found, bits and level, for the sent RNTI and one that was not sent
+    (which finds nothing)."""
+    cfg = pdcch_nr.CoresetConfig(nof_prb=273, pci=500, slot=2)
+    a = dci_nr.DciNr10(n_rb=273).nof_bits
+    gen = torch.Generator().manual_seed(13)
+    dmrs_k = torch.as_tensor(pdcch_nr._re_maps(273)[1])
+    rows = []
+    for i in range(16):
+        bits = torch.randint(0, 2, (a,), generator=gen, dtype=torch.int8)
+        enc = [pdcch_nr.encode(cfg, bits, 0x4601, aggregation=agg, start_cce=start,
+                               device="cpu") for agg, start in ((1, 3 + i), (2, 20), (4, 36))]
+        row = sum(enc)
+        row[:, dmrs_k] = enc[0][:, dmrs_k]   # one DMRS, not three
+        rows.append(row)
+    rx = awgn.awgn(torch.cat(rows), 10 ** -0.5, generator=gen)
+    for rnti in (0x4601, 0x4602):
+        want = pdcch_nr.blind_decode(cfg, rx, rnti=rnti, dci_len=a)
+        got = pdcch_nr.blind_decode(cfg, rx.to(cuda_device), rnti=rnti, dci_len=a)
+        for key in ("found", "bits", "agg"):
+            assert torch.equal(got[key].cpu(), want[key]), key
+        if rnti == 0x4601:
+            assert bool(want["found"].all())
+        else:
+            assert not bool(want["found"].any())

@@ -22,6 +22,8 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "apps.srsenb", "apps.srsue", "tools.phy_e2e", "tools.three_process",
             "ops.ldpc", "ops.polar", "ops.polar_3gpp", "models.grid_nr", "models.sch_nr",
             "models.dci_nr", "models.ra_nr", "models.harq_ack_nr", "models.pdsch_nr",
+            "models.ssb", "models.ue_sync_nr", "models.pdcch_nr", "models.pucch_nr",
+            "models.pusch_nr", "tools.run_nr",
             *(f"utils.{m}" for m in ("io", "log", "metrics", "sys_metrics", "checkpoint",
                                      "crash_handler")),
             *(f"stack.{m}" for m in (
@@ -29,7 +31,8 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
                 "s1ap_ies", "s1ap_msgs", "nas_msgs", "tft", "usim", "pdcp", "pdcp_nr", "rlc_um",
                 "rlc_am", "mac_pdu", "sched", "enb_mac", "ue_mac", "nas_ue", "rrc_idle",
                 "rrc_meas", "rrc_ue", "rrc_enb", "epc", "gtpu", "gtpc", "mbms_gw", "x2", "e2",
-                "e2ap_per", "nas_eps_codec")))
+                "e2ap_per", "nas_eps_codec", "mac_pdu_nr", "rlc_nr", "nas_5gs_codec", "nas_5g",
+                "ngap", "rrc_nr_uper", "rrc_nr", "sched_nr", "ue_mac_nr")))
 
 _CHECK = """
 import importlib, pkgutil, sys

@@ -1,7 +1,7 @@
-"""Port parity: the protocol stack that the system path runs — the 25
-JAX-free ``stack/`` modules the port copies, and ``stack/security``, the one
-it rewrites (AES-128, CTR and CMAC in plain Python instead of the
-``cryptography`` package).
+"""Port parity: the protocol stack that the system paths run — the 34
+JAX-free ``stack/`` modules the port copies (nine of them the NR stack's),
+and ``stack/security``, the one it rewrites (AES-128, CTR and CMAC in plain
+Python instead of the ``cryptography`` package).
 
 - Each copied module's source equals its JAX-package file once the import
   paths ``srsran_4g_tpu.`` are rewritten to ``srsran_4g_tpu_torch.``.
@@ -33,7 +33,8 @@ REPO = Path(__file__).resolve().parents[1]
 COPIED = ("snow3g_zuc", "asn1", "aper", "rrc_uper", "rrc_msgs", "s1ap_per", "s1ap_ies",
           "s1ap_msgs", "nas_msgs", "tft", "usim", "pdcp", "pdcp_nr", "rlc_um", "rlc_am",
           "mac_pdu", "sched", "enb_mac", "ue_mac", "nas_ue", "rrc_idle", "rrc_meas", "rrc_ue",
-          "rrc_enb", "epc")
+          "rrc_enb", "epc", "mac_pdu_nr", "rlc_nr", "nas_5gs_codec", "nas_5g", "ngap",
+          "rrc_nr_uper", "rrc_nr", "sched_nr", "ue_mac_nr")
 
 
 def h(s: str) -> bytes:
