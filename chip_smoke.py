@@ -110,7 +110,27 @@ read just after:
   and without 2 ACK + 20 CSI bits, a PDCCH-NR search of a 273 PRB CORESET
   over 64 captures (one DCI each at L = 1, 2 or 4; an unsent RNTI finds
   nothing), PUCCH-NR F2 (20 bits, CRC11 + polar) and F1 over 1024, and the
-  SSB search + PBCH over 128 captures at random delays (exact offsets).
+  SSB search + PBCH over 128 captures at random delays (exact offsets);
+- 20 MHz V2X sidelink, TM4 (``models/sidelink``, ``models/sl_rx``): a
+  capture of a random lead, one SLSS + PSBCH subframe and 40 data subframes
+  (two vehicles on 48 PRB or one on 96 PRB each, MCS 22, 70 in all) from
+  this script's TM3/4 transmitter, synchronised (``psbch_sync_decode``) and
+  blind-decoded (``decode_capture``): every SCI and TB exact, both
+  default-route turbo kernels launched (``map_fused16`` at L = 192,
+  ``map_windowed`` at L = 178) and held against their plain versions at the
+  largest shape, one subframe decoded again on the CPU, host ms a subframe
+  and 8 data subframes profiled;
+- an NB-IoT cell from grids (``models/nbiot``, ``models/nbiot_data``), 1,024
+  a batch with a random gain: NPSS, NSSS over 504 ids, the NPBCH with a
+  MIB-NB (r13 and r14), DCI N1 on each NPDCCH candidate and an unsent RNTI,
+  the NPDSCH at three points (one the BCCH with a SIB1-NB), each timed and
+  profiled, no turbo launch;
+- NR CORESET#0 + SIB1 at 20 MHz / 15 kHz from samples (``models/coreset0``):
+  32 captures, an SI-RNTI DCI at L = 4, 8 or 16 found at its Type0
+  candidate, the SIB1 it grants decoded, an unsent RNTI finding nothing, one
+  capture again on the CPU; CSI-RS at 273 PRB over 64 slots at 0-25 dB
+  (``models/csi_nr``), each SINR within 3 dB, the CQIs equal to the CPU's;
+  no turbo launch.  Each phase's seconds and the whole script's are logged.
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
 ``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
@@ -323,6 +343,50 @@ NR_PDCCH_AT = ((1, 3), (2, 20), (4, 36))  # (level, first start CCE) of the DCI 
 NR_PUCCH_BATCH, NR_PUCCH_SNR_DB = 1024, 10.0
 NR_PUCCH_F2 = dict(pci=500, rnti=NR_RNTI, nof_prb=4, nof_symb=2, nof_uci_bits=20)
 NR_SSB_BATCH, NR_SSB_SNR_DB, NR_SSB_PCI = 128, 10.0, 500
+# Sidelink V2X at 20 MHz (100 PRB, 30.72 Msps), TM4, the default pool (10
+# subchannels of 10 PRB): a random lead of up to a subframe, one SLSS + PSBCH
+# subframe of N_SL_ID 335 (root 37), then SL_DATA_SF data subframes at 30 dB,
+# each with a random phase.  Three of every four carry two vehicles (PSCCH on
+# subchannel 0 and 5, each PSSCH 48 PRB: TBS 22152 in 4 code blocks of K =
+# 5568, window L = 192, map_fused16), every fourth one vehicle over all ten
+# subchannels (98 PRB clipped to 96: TBS 45352, 8 code blocks of K = 5696, L =
+# 178, map_windowed); every grant MCS 22 (64QAM), rv 0.  The receiver's
+# first SL_PROFILE_SF data subframes are profiled.
+SL_PRB, SL_SYMBOL_SZ, SL_N_SL_ID, SL_TM = 100, 2048, 335, 4
+SL_DATA_SF, SL_MCS, SL_SNR_DB, SL_PROFILE_SF = 40, 22, 30.0, 8
+SL_MIB = dict(sl_bandwidth=100, direct_frame_number=517, direct_subframe_number=0,
+              in_coverage=False)
+SL_SHAPES = {"map_fused16": (4, 5568, 192), "map_windowed": (8, 5696, 178)}  # (B, K, L) a TB
+# NB-IoT, one standalone PRB at 15 kHz, NB_BATCH grids a batch, each with a
+# random complex gain (amplitude 0.5-1.5) and AWGN: the NPSS at 5 dB, the NSSS
+# of three cell ids at 6 dB, the NPBCH (an rrc_nbiot MIB-NB) at frames 0, 12
+# and 35 (r14) at 8 dB, DCI N1 on each NPDCCH candidate at 8 dB, the NPDSCH at
+# tests/test_nbiot_data.py's points and a SIB1-NB on the BCCH NPDSCH.
+NB_BATCH, NB_CELL, NB_RNTI = 1024, 17, 0x4604
+NB_NSSS_CELLS = (0, 257, 503)
+NB_NPBCH_FRAMES = ((0, False), (12, False), (35, True))
+# The NPDSCH's block errors are held to NB_NPDSCH_BLER of a batch (with every
+# CRC-passing TB exact, and the CPU's decode identical on NB_CPU_RERUN captures
+# and on every one whose CRC failed): the
+# JAX receiver's NRS estimate (8 pilots a subframe) leaves block errors at the
+# 6 dB point of tests/test_nbiot_data.py (2 of 4,096 on the CPU, the port's
+# flags equal).
+NB_NPDSCH_BLER, NB_CPU_RERUN = 0.01, 16
+NB_NPDSCH = (("i_tbs 12, i_sf 2", dict(i_tbs=12, i_sf=2), 16.0),
+             ("i_tbs 4, i_sf 3", dict(i_tbs=4, i_sf=3), 6.0),
+             ("BCCH SIB1-NB", dict(i_tbs=0, i_sf=6, is_bcch=True, rnti=0xFFFF), 6.0))
+# NR CORESET#0 + SIB1 on a 20 MHz carrier at 15 kHz (106 PRB, symbol_sz 2048,
+# 30.72 Msps), PCI 500, slot 0, carrier at NR_SIB_FC_HZ: the SSB centre
+# NR_SIB_SSB_HZ above pointA puts CORESET#0 index 13 (96 PRB x 2 symbols,
+# Table 13-1 offset 38 RB) on RB 5-100; NR_SIB_BATCH one-slot captures at
+# NR_SIB_SNR_DB, each an SI-RNTI DCI 1_0 at L = 4, 8 or 16 of the Type0 CSS
+# and the SIB1 PDSCH it grants: all 96 PRB, time row 0, NR_SIB_MCS.  Then
+# CSI-RS on PR 12's carrier (273 PRB, 30 kHz), NR_CSI_BATCH slots at SNRs
+# spread over 0-25 dB.
+NR_SIB_PRB, NR_SIB_SYMBOL_SZ, NR_SIB_PCI, NR_SIB_CORESET0 = 106, 2048, 500, 13
+NR_SIB_SSB_HZ, NR_SIB_FC_HZ = 43 * 180e3 + 1.8e6, 2.1e9
+NR_SIB_BATCH, NR_SIB_SNR_DB, NR_SIB_MCS, SI_RNTI_NR = 32, 10.0, 9, 0xFFFF
+NR_CSI_BATCH = 64
 
 
 def log(msg: str) -> None:
@@ -1067,16 +1131,19 @@ def ctrl_traffic(dev, gen):
     return enb_dl.subframe_to_samples(cell, g), cfg, sent
 
 
-def profile_window(fn, card: str, what: str, host_s: float, reps: int = 3
-                   ) -> tuple[float, float] | None:
+def profile_window(fn, card: str, what: str, host_s: float, reps: int = 3,
+                   cpu_ops: bool = True) -> tuple[float, float] | None:
     """Device time, kernel count and idle share of fn() from torch.profiler
     over ``reps`` calls, against the unprofiled host time ``host_s``; returns
     (device ms, kernels) a call, or None when the profiler saw no device
-    time."""
+    time.  ``cpu_ops=False`` records the kernels alone: the host ops' events
+    of a call of tens of thousands of kernels take the profiler seconds to
+    aggregate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops else [])
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1780,7 +1847,42 @@ def sync_path(dev, gen, card: str) -> None:
                    sum(sorted(track_s)[:10]))
 
 
-class SystemClock:
+class TurboSpy:
+    """Hooks on the default route's turbo wrappers: each wrapper's (B, K, L,
+    T) shapes and the inputs of its largest call.  It only observes: each
+    wrapper still counts its own launches."""
+
+    def __init__(self) -> None:
+        self.shapes: dict[str, dict] = {w: {} for w in SYS_WRAPPERS}
+        self.largest: dict[str, tuple] = {}
+
+    def __enter__(self):
+        from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+
+        self._saved = [(w, getattr(tm, w)) for w in SYS_WRAPPERS]
+        for w, fn in self._saved:
+            setattr(tm, w, self._spy(w, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+
+        for w, fn in self._saved:
+            setattr(tm, w, fn)
+        return False
+
+    def _spy(self, name: str, fn):
+        def spy(gs, gp, a0, b0, t, l, nb, nw):
+            key = (nb, l * nw, l, t)
+            self.shapes[name][key] = self.shapes[name].get(key, 0) + 1
+            if gs.shape[1] > self.largest.get(name, (0,))[0]:
+                self.largest[name] = (gs.shape[1], (gs.clone(), gp.clone(), a0.clone(),
+                                                    b0.clone(), t, l, nb, nw))
+            return fn(gs, gp, a0, b0, t, l, nb, nw)
+        return spy
+
+
+class SystemClock(TurboSpy):
     """Hooks on the nodes' once-a-TTI ``tick`` and on the default route's
     turbo wrappers for one system run: each TTI's host time (the device
     synchronised at every TTI boundary), a torch.profiler window of
@@ -1796,9 +1898,8 @@ class SystemClock:
         self.stamps: list[float] = []
         self.attach_tti: int | None = None
         self.window: tuple[int, int] | None = None
+        super().__init__()
         self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        self.shapes: dict[str, dict] = {w: {} for w in SYS_WRAPPERS}
-        self.largest: dict[str, tuple] = {}
         self.stage_s: dict[str, dict[int, float]] = {st: {} for st in SYS_STAGES}
         self.stage_n: dict[str, int] = {st: 0 for st in SYS_STAGES}
 
@@ -1841,16 +1942,6 @@ class SystemClock:
         if self.window is not None and len(self.window) == 1:
             self.prof.stop()
         return False
-
-    def _spy(self, name: str, fn):
-        def spy(gs, gp, a0, b0, t, l, nb, nw):
-            key = (nb, l * nw, l, t)
-            self.shapes[name][key] = self.shapes[name].get(key, 0) + 1
-            if gs.shape[1] > self.largest.get(name, (0,))[0]:
-                self.largest[name] = (gs.shape[1], (gs.clone(), gp.clone(), a0.clone(),
-                                                    b0.clone(), t, l, nb, nw))
-            return fn(gs, gp, a0, b0, t, l, nb, nw)
-        return spy
 
     def _timed(self, stage: str, fn):
         def timed(*args, **kw):
@@ -2023,24 +2114,8 @@ def system_path(dev, card: str) -> dict:
         + "; ".join(f"{w} {dict(sorted(v.items()))}" for w, v in clock.shapes.items()))
 
     # ---- each kernel the run launched, against its plain version ----------------
-    entries = {}
-    for w in SYS_WRAPPERS:
-        if w not in clock.largest:
-            continue
-        _, args = clock.largest[w]
-        r = check_kernel(SYS_ROUTE[w], args, time_it=True)
-        gs, _, _, _, t, l, b, nw = args
-        nbytes, adds, maxes = work(w, b, l * nw, l, t)
-        bound_ms, bound_by = bound(nbytes, adds, maxes, "bf16" if w in BF16_WRAPPERS else "f32")
-        entries[w] = dict(
-            launches=launches[w], shapes=[dict(blocks=k[0], K=k[1], L=k[2], T=k[3], calls=n)
-                                          for k, n in sorted(clock.shapes[w].items())],
-            largest=dict(blocks=b, K=l * nw, L=l, T=t, lanes=gs.shape[1]),
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
-        log(f"[{card}] system path {w} at its largest shape B={b} K={l * nw} L={l} T={t}: "
-            f"{r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}); plain "
-            f"{r['plain_ms']:.2f} ms; max|diff| {r['max_abs_err']}")
+    entries = {w: kernel_entry(w, clock.largest[w][1], launches[w], clock.shapes[w], card,
+                               "system path") for w in SYS_WRAPPERS if w in clock.largest}
     clock.largest.clear()
 
     # ---- the fading channel on the card against the CPU ---------------------------
@@ -2742,11 +2817,616 @@ def nr_system_path(dev, card: str) -> dict:
                 profile=prof, channels=channels)
 
 
+# ---- the sidelink TM3/4 transmitter: a fixture of this script and of the
+# port's tests, built from the port's own pieces (the JAX package has no
+# TM3/4 transmitter, so the port has none either) ------------------------------
+
+
+def sl_samples(grids: torch.Tensor, symbol_sz: int) -> torch.Tensor:
+    """(S, 14, nre) sidelink subframe grids → (S·15·symbol_sz,) samples, the
+    inverse of ``sidelink.sl_subframe_grid``: SC-FDMA with the +7.5 kHz
+    shift whose phase origin is each symbol's body, so each cyclic prefix
+    continues its symbol (the body's tail, negated)."""
+    from srsran_4g_tpu_torch.models import sidelink as SL
+
+    s, _, nre = grids.shape
+    n = symbol_sz
+    X = grids.new_zeros((s, 14, n))
+    X[..., -(nre // 2):] = grids[..., :nre // 2]
+    X[..., :nre // 2] = grids[..., nre // 2:]
+    x = torch.fft.ifft(X, dim=-1) * np.sqrt(n)
+    body = SL._body_index(n, False, torch.device("cpu")).numpy()
+    sym = np.concatenate([np.full(n + body[l, 0] - (body[l - 1, -1] + 1 if l else 0), l)
+                          for l in range(14)])
+    k = np.concatenate([np.arange(body[l - 1, -1] + 1 if l else 0, body[l, -1] + 1) - body[l, 0]
+                        for l in range(14)])
+    rot = torch.as_tensor(np.exp(1j * np.pi * k / n).astype(np.complex64), device=grids.device)
+    idx = (torch.as_tensor(sym, device=grids.device), torch.as_tensor(k % n, device=grids.device))
+    return (x[:, idx[0], idx[1]] * rot).reshape(-1)
+
+
+def slss_grid(n_sl_id: int, nof_prb: int, mib_bits: np.ndarray, dev) -> torch.Tensor:
+    """(14, nre) TM3/4 SLSS subframe: the PSBCH (MIB-SL-V2X) with its DMRS,
+    the PSSS on symbols 1-2 and the SSSS on 11-12, each on the 62 centre
+    subcarriers either side of DC where ``slss_find``'s matched filter
+    reads them."""
+    from srsran_4g_tpu_torch.models import sidelink as SL
+
+    g = SL.psbch_tx_subframe(n_sl_id, nof_prb, mib_bits[None], tm=4, device=dev)[0]
+    c = nof_prb * 6
+    cols = torch.cat([torch.arange(c - 31, c), torch.arange(c + 1, c + 32)]).to(dev)
+    g[1:3, cols] = torch.as_tensor(SL.psss_for_id(n_sl_id), device=dev)
+    g[11:13, cols] = torch.as_tensor(SL.ssss_sequence(n_sl_id), device=dev)
+    return g
+
+
+def sl34_grids(sci_bits: np.ndarray, sub_channel: int, cyclic_shift: int, tb: torch.Tensor,
+               pool, sf_idx: int, rv: int) -> torch.Tensor:
+    """(1, 14, nre) TM3/4 PSCCH (SCI format 1 on the subchannel's first 2 PRB,
+    its DMRS at ``cyclic_shift``) and the adjacent PSSCH the SCI grants
+    (N_X_ID from the PSCCH CRC), with the port's receive-side tables."""
+    from srsran_4g_tpu_torch.models import ra, sch, sidelink as SL
+    from srsran_4g_tpu_torch.models.pusch import transform_precode
+    from srsran_4g_tpu_torch.ops import modem
+    from srsran_4g_tpu_torch.ops.scrambling import scramble_bits
+
+    dev, nre = tb.device, pool.nof_prb * 12
+    n_data = len(SL.SL34_DATA_SYMS)
+    layout = dict(data_syms=SL.SL34_DATA_SYMS, dmrs_syms=SL.SL34_DMRS_SYMS)
+    e = n_data * SL.PSCCH34_NOF_PRB * 12 * 2
+    bits = torch.as_tensor(sci_bits[None], dtype=torch.int8, device=dev)
+    coded = SL._crc_tbcc(bits, e)[..., SL._perms_t(e, 2, True, dev)[0]]
+    syms = modem.modulate("qpsk", scramble_bits(coded, SL._gold_t(SL.PSCCH_SCRAMBLING_SEED,
+                                                                  e, dev)))
+    grid = SL._sl_map(transform_precode(syms.reshape(1, n_data, 24)),
+                      np.tile(SL._pscch34_dmrs(cyclic_shift)[None], (4, 1)), nre,
+                      sub_channel * pool.size_sub_channel, SL.PSCCH34_NOF_PRB, **layout)
+    n_x = SL.sci0_n_x_id(sci_bits)
+    sci = SL.SciFormat1.unpack(sci_bits, pool.num_sub_channel)
+    ps, nprb = SL.pssch34_prbs(sub_channel, sci.riv, pool.size_sub_channel,
+                               pool.num_sub_channel, pool.start_prb_sub_channel)
+    mod = ra.ul_mcs_to_mod(sci.mcs)
+    qm = {"qpsk": 2, "16qam": 4, "64qam": 6}[mod]
+    g = n_data * 12 * nprb * qm
+    cw = sch.dlsch_encode(sch.dlsch_plan(tb.shape[-1], g, qm, rv), tb[None])
+    cw = cw[..., SL._perms_t(g, qm, True, dev)[0]]
+    cinit = ((n_x << 14) + ((sf_idx % 10) << 9) + 510) % (1 << 31)
+    syms = modem.modulate(mod, scramble_bits(cw, SL._gold_t(cinit, g, dev)))
+    return grid + SL._sl_map(transform_precode(syms.reshape(1, n_data, 12 * nprb)),
+                             SL._pssch34_dmrs(n_x, sf_idx, nprb), nre, ps, nprb, **layout)
+
+
+def sl_tm4_stream(dev, gen, rng, pool, symbol_sz: int, schedule, n_sl_id: int,
+                  mib_bits: np.ndarray, lead: int, snr_db: float):
+    """A TM3/4 capture: ``lead`` samples of noise, one SLSS subframe, then a
+    data subframe for each entry of ``schedule`` — a list of vehicles
+    (sub_channel, l_subch, mcs, retransmission[, cyclic shift]), each a
+    PSCCH at its cyclic shift (else a random one) and the PSSCH it grants
+    with random TB bits (``gen``) — each
+    subframe at a random phase (``rng``), AWGN at ``snr_db`` per RE.  The
+    SLSS subframe is subframe index 0, data subframe i index (i+1) % 10.
+    Returns (samples (L,) complex64, the vehicles sent: dicts of sf, sci,
+    sub_channel, tbs, tb)."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import ra, sidelink as SL, sl_rx
+
+    nre = pool.nof_prb * 12
+    grids, sent = [slss_grid(n_sl_id, pool.nof_prb, mib_bits, dev)], []
+    for i, vehicles in enumerate(schedule):
+        g = torch.zeros((1, 14, nre), dtype=torch.complex64, device=dev)
+        for sub, l_subch, mcs, retx, *cs in vehicles:
+            sci = SL.SciFormat1(priority=int(rng.integers(8)), resource_reserv=1,
+                                riv=ra.riv_encode(pool.num_sub_channel, l_subch, sub),
+                                mcs=mcs, retransmission=retx)
+            _, nprb = SL.pssch34_prbs(sub, sci.riv, pool.size_sub_channel,
+                                      pool.num_sub_channel, pool.start_prb_sub_channel)
+            tbs = ra.tbs_from_itbs(ra.ul_mcs_to_itbs(mcs), nprb)
+            tb = torch.randint(0, 2, (tbs,), generator=gen, device=dev, dtype=torch.int8)
+            shift = cs[0] if cs else int(rng.choice(sl_rx.CYCLIC_SHIFTS))
+            g = g + sl34_grids(sci.pack(pool.num_sub_channel), sub, shift, tb, pool,
+                               (i + 1) % 10, sl_rx.PSSCH_RV[1 if retx else 0])
+            sent.append(dict(sf=i + 1, sci=sci, sub_channel=sub, tbs=tbs, tb=tb))
+        grids.append(g[0])
+    phase = torch.as_tensor(np.exp(2j * np.pi * rng.random(len(grids))).astype(np.complex64),
+                            device=dev)
+    x = (sl_samples(torch.stack(grids), symbol_sz).reshape(len(grids), -1) * phase[:, None])
+    x = torch.cat([x.new_zeros(lead), x.reshape(-1)])
+    return awgn.awgn(x, 10.0 ** (-snr_db / 10.0), generator=gen), sent
+
+
+def sl_schedule(n_sf: int, mcs: int) -> list:
+    """SL_DATA_SF's traffic: two vehicles on subchannels 0-4 and 5-9 in three
+    of every four subframes, one over all ten in every fourth."""
+    return [[(0, 10, mcs, 0)] if i % 4 == 3 else [(0, 5, mcs, 0), (5, 5, mcs, 0)]
+            for i in range(n_sf)]
+
+
+def kernel_entry(w: str, args, launches: int, shapes: dict, card: str, what: str) -> dict:
+    """A default-route kernel against its plain version at the largest shape
+    a path launched it at, timed and bounded, for the kernels line."""
+    r = check_kernel(SYS_ROUTE[w], args, time_it=True)
+    gs, _, _, _, t, l, b, nw = args
+    nbytes, adds, maxes = work(w, b, l * nw, l, t)
+    bound_ms, bound_by = bound(nbytes, adds, maxes, "bf16" if w in BF16_WRAPPERS else "f32")
+    log(f"[{card}] {what} {w} at its largest shape B={b} K={l * nw} L={l} T={t}: "
+        f"{r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}); plain "
+        f"{r['plain_ms']:.2f} ms; max|diff| {r['max_abs_err']}; {launches} launches")
+    return dict(launches=launches,
+                shapes=[dict(blocks=k[0], K=k[1], L=k[2], T=k[3], calls=n)
+                        for k, n in sorted(shapes.items())],
+                largest=dict(blocks=b, K=l * nw, L=l, T=t, lanes=gs.shape[1]),
+                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+
+
+def sidelink_path(dev, card: str) -> dict:
+    """20 MHz V2X TM4 from samples: SLSS timing and the PSBCH (MIB-SL-V2X),
+    then ``sl_rx.decode_capture`` over the SLSS subframe and SL_DATA_SF data
+    subframes (the PSCCH blind search of every subframe in one batch, a
+    PSSCH decode per SCI through the turbo kernels); every SCI and TB checked
+    against what was sent, both default-route kernels launched and held
+    against their plain versions at the largest shape, one subframe decoded
+    again on the CPU, the host time a subframe, then SL_PROFILE_SF data
+    subframes profiled.  Returns each kernel's entry for the kernels line."""
+    from srsran_4g_tpu_torch.models import sidelink as SL, sl_rx
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    pool = sl_rx.SlPool.default(SL_PRB, SL_TM)
+    mib = SL.MibSl(**SL_MIB).pack(v2x=True)
+    sf_len, n_sf = 15 * SL_SYMBOL_SZ, 1 + SL_DATA_SF
+    lead = int(rng.integers(sf_len))
+    samples, sent = sl_tm4_stream(dev, gen, rng, pool, SL_SYMBOL_SZ,
+                                  sl_schedule(SL_DATA_SF, SL_MCS), SL_N_SL_ID, mib, lead,
+                                  SL_SNR_DB)
+    log(f"sidelink path: {SL_PRB} PRB TM{SL_TM}, {pool.num_sub_channel} subchannels of "
+        f"{pool.size_sub_channel} PRB, lead {lead}, 1 SLSS + {SL_DATA_SF} data subframes, "
+        f"{len(sent)} vehicles at MCS {SL_MCS}, {SL_SNR_DB} dB")
+
+    # ---- SLSS timing and the PSBCH ------------------------------------------
+    coarse = SL.slss_find(samples, SL_PRB, SL_SYMBOL_SZ, 37 if SL_N_SL_ID >= 168 else 26)
+    sync = SL.psbch_sync_decode(samples, SL_PRB, SL_SYMBOL_SZ, SL_N_SL_ID, tm=SL_TM)
+    sync_s = stage_time(lambda: SL.psbch_sync_decode(samples, SL_PRB, SL_SYMBOL_SZ, SL_N_SL_ID,
+                                                     tm=SL_TM))
+    checks = {"SLSS timing exact": coarse["offset"] == lead,
+              "PSBCH CRC": sync["crc_ok"],
+              "MIB-SL-V2X bits": sync["crc_ok"] and np.array_equal(sync["mib"], mib),
+              # the first CRC-passing fine-timing hypothesis: 8 samples into the CP
+              "PSBCH offset the first hypothesis": sync["offset"] == lead - 8}
+    if not all(checks.values()):
+        raise AssertionError(f"sidelink path: {checks}; slss {coarse}, offset {sync['offset']}")
+
+    # ---- the blind receiver, cold then counted -------------------------------
+    def receive(n=n_sf, x=samples, offset=sync["offset"], first=0):
+        return sl_rx.decode_capture(x, SL_PRB, SL_TM, SL_SYMBOL_SZ, pool, first_sf_idx=first,
+                                    file_offset=offset, max_subframes=n)
+
+    cold_s = stage_time(receive)
+    decoded, pssch_s, search_s = [], [], []
+    orig_pssch, orig_search = SL.pssch34_decode, sl_rx.pscch34_search
+
+    def pssch_spy(grid, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_pssch(grid, *args, **kw)
+        decoded.append(out["bits"][0])
+        torch.cuda.synchronize()
+        pssch_s.append(time.perf_counter() - t0)
+        return out
+
+    def search_spy(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_search(*args, **kw)
+        search_s.append(time.perf_counter() - t0)
+        return out
+
+    reset_counts()
+    SL.pssch34_decode, sl_rx.pscch34_search = pssch_spy, search_spy
+    try:
+        with TurboSpy() as spy:
+            t0 = time.perf_counter()
+            res = receive()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        SL.pssch34_decode, sl_rx.pscch34_search = orig_pssch, orig_search
+    launches = launch_counts()
+    events = res["events"]
+    got = [(e["sf"], e["sub_channel"], e["sci"], e["mcs"], e["tbs"]) for e in events]
+    want = [(s["sf"], s["sub_channel"], s["sci"], SL_MCS, s["tbs"]) for s in sent]
+    checks = {f"{len(sent)} of {len(sent)} SCIs": res["num_decoded_sci"] == len(sent),
+              "every SCI's subframe, subchannel, fields, MCS and TBS": got == want,
+              "every TB's CRC": res["num_decoded_tb"] == len(sent)
+              and all(e["crc_ok"] for e in events),
+              "every TB's bits": len(decoded) == len(sent) and all(
+                  torch.equal(d, s["tb"]) for d, s in zip(decoded, sent)),
+              "map_fused16 and map_windowed launched": all(launches[w] > 0 for w in SL_SHAPES),
+              "no other turbo kernel": not any(v for w, v in launches.items()
+                                               if w not in SL_SHAPES),
+              "the shapes": all(max(spy.shapes[w], key=lambda k: k[0] * k[1] // k[2])[:3]
+                                == SL_SHAPES[w] for w in SL_SHAPES)}
+    if not all(checks.values()):
+        raise AssertionError(f"sidelink path: {checks}; {res['num_decoded_sci']} SCIs, "
+                             f"{res['num_decoded_tb']} TBs; launches {launches}; "
+                             f"shapes {spy.shapes}")
+    log(f"sidelink path: every check passed ({', '.join(checks)}); launches {launches}; "
+        f"shapes (B, K, L, T): " + "; ".join(f"{w} {dict(sorted(v.items()))}"
+                                             for w, v in spy.shapes.items()))
+
+    # ---- one subframe again on the CPU ----------------------------------------
+    cpu = receive(1, samples.cpu(), sync["offset"] + sf_len, 1)
+    card_sf1 = [dict(e, sf=0) for e in events if e["sf"] == 1]
+    if cpu["events"] != card_sf1 or len(card_sf1) != 2:
+        raise AssertionError(f"sidelink path: the CPU's events of subframe 1 differ: "
+                             f"{cpu['events']} vs {card_sf1}")
+
+    # ---- host time a subframe, and a profile of SL_PROFILE_SF data subframes --
+    by_sf = {}
+    for e, secs in zip(events, pssch_s):
+        by_sf[e["sf"]] = by_sf.get(e["sf"], 0.0) + secs
+    per_sf = np.asarray([by_sf.get(sf, 0.0) for sf in range(1, n_sf)]) * 1e3
+    share = search_s[0] / n_sf * 1e3
+    log(f"[{card}] sidelink path: {n_sf} subframes decoded in {wall * 1e3:.2f} ms "
+        f"({wall / n_sf * 1e3:.2f} ms a subframe against the air's 1 ms; cold run "
+        f"{cold_s * 1e3:.2f} ms); SLSS + PSBCH sync {sync_s * 1e3:.2f} ms; PSCCH search of "
+        f"all {n_sf} subframes in one batch {search_s[0] * 1e3:.2f} ms ({share:.2f} ms a "
+        f"subframe); PSSCH decodes a data subframe: median {np.median(per_sf):.2f} ms, p90 "
+        f"{np.percentile(per_sf, 90):.2f} ms; host ms a data subframe (its decodes + its "
+        f"search share): median {np.median(per_sf) + share:.2f}, p90 "
+        f"{np.percentile(per_sf, 90) + share:.2f}")
+    n_prof = 1 + min(SL_PROFILE_SF, SL_DATA_SF)
+    grids = SL.sl_subframe_grid(samples[sync["offset"]:sync["offset"] + n_prof * sf_len]
+                                .reshape(n_prof, sf_len), SL_PRB, SL_SYMBOL_SZ)
+    rx_s = min(stage_time(lambda: receive(n_prof)) for _ in range(3))
+    srch_s = min(stage_time(lambda: sl_rx.pscch34_search(grids, pool)) for _ in range(3))
+    prof = profile_window(lambda: receive(n_prof), card, f"sidelink path: the receiver over "
+                          f"{n_prof} subframes", rx_s) or (float("nan"),) * 2
+    prof_s = profile_window(lambda: sl_rx.pscch34_search(grids, pool), card,
+                            f"sidelink path: the PSCCH search of {n_prof} subframes",
+                            srch_s) or (float("nan"),) * 2
+    log(f"[{card}] sidelink path over {n_prof} subframes: {rx_s * 1e3:.2f} ms host, device "
+        f"{prof[0]:.3f} ms in {prof[1]:.0f} kernels (idle {1 - prof[0] / (rx_s * 1e3):.3f}); "
+        f"the PSCCH search {srch_s * 1e3:.2f} ms host, device {prof_s[0]:.3f} ms in "
+        f"{prof_s[1]:.0f} kernels (idle {1 - prof_s[0] / (srch_s * 1e3):.3f}); the PSSCH "
+        f"decodes and the rest {(rx_s - srch_s) * 1e3:.2f} ms host, device "
+        f"{prof[0] - prof_s[0]:.3f} ms in {prof[1] - prof_s[1]:.0f} kernels")
+    entries = {w: kernel_entry(w, spy.largest[w][1], launches[w], spy.shapes[w], card,
+                               "sidelink path") for w in SL_SHAPES}
+    return dict(entries=entries, wall_ms=wall * 1e3, ms_per_sf=wall / n_sf * 1e3,
+                cold_ms=cold_s * 1e3, sync_ms=sync_s * 1e3, search_ms=search_s[0] * 1e3,
+                pssch_ms_per_sf=dict(median=float(np.median(per_sf)),
+                                     p90=float(np.percentile(per_sf, 90))),
+                profile=dict(subframes=n_prof, host_ms=rx_s * 1e3, device_ms=prof[0],
+                             kernels=prof[1], search_host_ms=srch_s * 1e3,
+                             search_device_ms=prof_s[0], search_kernels=prof_s[1]))
+
+
+def nb_channel(dev, gen, grid: torch.Tensor, snr_db: float) -> torch.Tensor:
+    """A random complex gain (amplitude 0.5-1.5, any phase) a capture and
+    AWGN at ``snr_db`` per RE of unit power after the gain."""
+    from srsran_4g_tpu_torch.channel import awgn
+
+    shape = (grid.shape[0],) + (1,) * (grid.dim() - 1)
+    amp = 0.5 + torch.rand(shape, generator=gen, device=dev)
+    ph = 2 * np.pi * torch.rand(shape, generator=gen, device=dev)
+    noise = awgn.awgn(torch.zeros_like(grid), 10.0 ** (-snr_db / 10.0), generator=gen)
+    return (grid + noise) * torch.polar(amp, ph)
+
+
+def timed_point(fn, card: str, what: str) -> dict:
+    """Best of 3 host ms of fn() and one profiled call (device ms, kernels)."""
+    best = min(stage_time(fn) for _ in range(3))
+    prof = profile_window(fn, card, what, best, reps=1, cpu_ops=False) or (float("nan"),) * 2
+    return dict(ms=best * 1e3, device_ms=prof[0], kernels=prof[1],
+                idle=1 - prof[0] / (best * 1e3))
+
+
+def nbiot_path(dev, card: str) -> dict:
+    """A standalone NB-IoT cell from grids, NB_BATCH captures a batch, each
+    with a random complex gain and AWGN: the NPSS metric, the NSSS search over
+    all 504 ids (three cell ids across the batch), the NPBCH carrying an
+    ``rrc_nbiot.MibNb`` at three frames (one r14), DCI N1 on each NPDCCH
+    candidate (and an RNTI not sent), the NPDSCH at three points, one the
+    BCCH carrying a packed SIB1-NB; every CRC, bit, cell id and field
+    checked, one capture of each point decoded again on the CPU, each point
+    timed and profiled; no turbo kernel may launch."""
+    from srsran_4g_tpu_torch.models import nbiot, nbiot_data as nb
+    from srsran_4g_tpu_torch.stack import rrc_nbiot
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b = NB_BATCH
+    reset_counts()
+    out, checks = {}, {}
+    zeros = torch.zeros((b, 14, 12), dtype=torch.complex64, device=dev)
+
+    # ---- NPSS and NSSS ----------------------------------------------------
+    rx = nb_channel(dev, gen, nbiot.put_npss(zeros), 5.0)
+    noise = nb_channel(dev, gen, zeros, 0.0)
+    checks["NPSS metric > 0.5, noise < 0.2"] = bool((nbiot.npss_metric(rx) > 0.5).all()) \
+        and bool((nbiot.npss_metric(noise) < 0.2).all())
+    cells = torch.as_tensor(NB_NSSS_CELLS, device=dev)[torch.arange(b, device=dev) % 3]
+    g = torch.cat([nbiot.put_nsss(zeros[i::3], c) for i, c in enumerate(NB_NSSS_CELLS)])
+    cells = torch.cat([cells[i::3] for i in range(3)])
+    rx_nsss = nb_channel(dev, gen, g, 6.0)
+    det = nbiot.nsss_detect(rx_nsss)
+    checks["NSSS cell ids"] = torch.equal(det["cell_id"], cells)
+    ref = nbiot.nsss_detect(rx_nsss[:1].cpu())
+    checks["NSSS on the CPU"] = torch.equal(ref["cell_id"], det["cell_id"][:1].cpu()) and \
+        float((ref["metric"] - det["metric"][:1].cpu()).abs().max()) <= 1e-3
+    out["nsss"] = timed_point(lambda: nbiot.nsss_detect(rx_nsss), card,
+                              f"nbiot path: NSSS over 504 ids, {b} grids")
+
+    # ---- NPBCH with an rrc_nbiot MIB-NB ----------------------------------
+    mib = rrc_nbiot.MibNb(sfn_msb=5, scheduling_info_sib1=3, system_info_value_tag=9)
+    mib_bits = np.unpackbits(np.frombuffer(mib.pack(), np.uint8))[:nbiot.MIB_NB_LEN]
+    bits = torch.as_tensor(np.tile(mib_bits, (b, 1)).astype(np.int8), device=dev)
+    for frame, r14 in NB_NPBCH_FRAMES:
+        block = (frame // nbiot.NPBCH_REP) % nbiot.NPBCH_BLOCKS
+        rx_b = nb_channel(dev, gen, nbiot.npbch_encode(NB_CELL, bits, frame_idx=frame,
+                                                       is_r14=r14), 8.0)
+
+        def dec(x=rx_b, block=block, frame=frame, r14=r14):
+            return nbiot.npbch_decode(NB_CELL, x, block_idx=block, nf=frame, is_r14=r14)
+
+        res = dec()
+        rx_mib = rrc_nbiot.MibNb.unpack(np.packbits(res["mib"][0].cpu().numpy().astype(
+            np.uint8)).tobytes())
+        c = dec(rx_b[:1].cpu())
+        checks[f"NPBCH frame {frame}"] = bool(res["crc_ok"].all()) and torch.equal(
+            res["mib"], bits) and bool((res["n_ports"] == 1).all()) and rx_mib == mib \
+            and all(torch.equal(c[k], res[k][:1].cpu()) for k in c)
+        out[f"npbch_{frame}"] = timed_point(dec, card, f"nbiot path: NPBCH frame {frame} of {b}")
+
+    # ---- NPDCCH: DCI N1 on each candidate, and an unsent RNTI -------------
+    dci = nb.DciN1(i_delay=0, i_sf=1, mcs=4, i_rep=0, ndi=1, harq_ack=2)
+    dci_bits = torch.as_tensor(np.tile(dci.pack(), (b, 1)), device=dev)
+    for cand, (ncce, l_agg) in enumerate(nb.CANDIDATES):
+        rx_c = nb_channel(dev, gen, nb.npdcch_encode(dci_bits, NB_RNTI, NB_CELL, subframe=1,
+                                                     ncce=ncce, l_agg=l_agg), 8.0)
+
+        def dec(x=rx_c, rnti=NB_RNTI):
+            return nb.npdcch_blind_decode(x, rnti, NB_CELL, subframe=1)
+
+        res, miss = dec(), dec(rnti=NB_RNTI + 1)
+        c = dec(rx_c[:1].cpu())
+        checks[f"NPDCCH candidate {cand}"] = bool(res["crc_ok"][:, cand].all()) and \
+            torch.equal(res["bits"][:, cand], dci_bits) and \
+            nb.unpack_dci_n1(res["bits"][0, cand].cpu().numpy()) == dci and \
+            not bool(miss["crc_ok"].any()) and \
+            all(torch.equal(c[k], res[k][:1].cpu()) for k in c)
+        out[f"npdcch_{cand}"] = timed_point(dec, card, f"nbiot path: NPDCCH search of {b} "
+                                            f"(DCI on candidate {cand})")
+
+    # ---- NPDSCH, and SIB1-NB on the BCCH ------------------------------------
+    sib1 = rrc_nbiot.Sib1Nb(cell_id=NB_CELL)
+    for name, kw, snr in NB_NPDSCH:
+        cfg = nb.NpdschConfig(**dict(dict(n_id_ncell=NB_CELL, rnti=NB_RNTI, sfn=8, start_sf=4),
+                                     **kw))
+        if cfg.is_bcch:
+            payload = np.unpackbits(np.frombuffer(sib1.pack(), np.uint8))
+            tb = torch.as_tensor(np.tile(np.pad(payload, (0, cfg.tbs - payload.size)),
+                                         (b, 1)).astype(np.int8), device=dev)
+        else:
+            tb = torch.randint(0, 2, (b, cfg.tbs), generator=gen, device=dev, dtype=torch.int8)
+        rx_d = nb_channel(dev, gen, nb.npdsch_encode(cfg, tb), snr)
+
+        def dec(x=rx_d, cfg=cfg):
+            return nb.npdsch_decode(cfg, x)
+
+        res = dec()
+        # the CPU on NB_CPU_RERUN captures and on every capture whose CRC failed on the card
+        sel = torch.unique(torch.cat([torch.arange(min(NB_CPU_RERUN, b), device=dev),
+                                      (~res["crc_ok"]).nonzero()[:, 0]]))
+        c = dec(rx_d[sel].cpu())
+        n_ko = int((~res["crc_ok"]).sum())
+        undetected = int(((res["bits"] != tb).any(dim=-1) & res["crc_ok"]).sum())
+        checks[f"NPDSCH {name}: block errors {n_ko}/{b} <= {NB_NPDSCH_BLER:g}"] = \
+            n_ko <= NB_NPDSCH_BLER * b
+        checks[f"NPDSCH {name}: every TB whose CRC passes exact"] = undetected == 0
+        checks[f"NPDSCH {name}: the CPU identical on {len(sel)} captures"] = all(
+            torch.equal(c[k], res[k][sel].cpu()) for k in c)
+        if cfg.is_bcch:
+            first = int(res["crc_ok"].to(torch.int8).argmax())  # a capture whose CRC passed
+            got = np.packbits(res["bits"][first].cpu().numpy().astype(np.uint8)).tobytes()
+            checks["SIB1-NB unpacked"] = rrc_nbiot.Sib1Nb.unpack(got[:len(sib1.pack())]) == sib1
+        out[f"npdsch {name}"] = timed_point(dec, card, f"nbiot path: NPDSCH {name}, TBS "
+                                            f"{cfg.tbs} over {cfg.nof_sf} subframes, {b}")
+    checks["no turbo kernel launched"] = not any(launch_counts().values())
+    if not all(checks.values()):
+        raise AssertionError(f"nbiot path: {checks}")
+    log(f"[{card}] nbiot path: every check passed ({', '.join(checks)}); "
+        + "; ".join(f"{k} {v['ms']:.2f} ms, device {v['device_ms']:.3f} ms in "
+                    f"{v['kernels']:.0f} kernels, idle {v['idle']:.3f}" for k, v in out.items()))
+    return out
+
+
+def nr_sib_captures(dev, gen, rng, cs, a: int, nof_prb: int = NR_SIB_PRB,
+                    symbol_sz: int = NR_SIB_SYMBOL_SZ, pci: int = NR_SIB_PCI,
+                    batch: int = NR_SIB_BATCH, snr_db: float = NR_SIB_SNR_DB,
+                    mcs: int = NR_SIB_MCS, fc_hz: float = NR_SIB_FC_HZ, levels=(4, 8, 16)):
+    """``batch`` one-slot 15 kHz captures (slot 0) of CORESET#0 (``cs``) and
+    SIB1 on a ``nof_prb`` carrier: an SI-RNTI DCI 1_0 (its 38.212 SI fields:
+    the RIV of all of CORESET#0's PRB, time row 0, ``mcs``, zero padding to
+    ``a`` bits) on a random Type0 candidate at each of ``levels`` in turn,
+    the PDCCH DMRS on every CORESET RB, the SIB1 PDSCH it grants (type-1 DMRS
+    on symbols 2, 7, 11 at +3 dB), the ``fc_hz`` upconversion phase, AWGN at
+    ``snr_db`` per RE.  Returns (samples (B, slot_len), the payloads (B, a),
+    the candidates (l_agg, ncce) sent, the SIB1 bits (B, tbs))."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import coreset0 as C0, dci_nr, ra_nr, sch_nr
+    from srsran_4g_tpu_torch.ops import modem, polar_3gpp, sequence
+
+    b, nre, n = batch, nof_prb * 12, symbol_sz
+    riv = dci_nr.riv_encode(cs.nof_prb, 0, cs.nof_prb)
+    fields = [(riv, dci_nr._riv_bits(cs.nof_prb)), (0, 4), (0, 1), (mcs, 5)]
+    dci = np.zeros(a, np.int8)
+    dci[:sum(w for _, w in fields)] = [(v >> (w - 1 - i)) & 1 for v, w in fields
+                                       for i in range(w)]
+    payload = torch.as_tensor(np.tile(dci, (b, 1)), device=dev)
+    grid = torch.zeros((b, 14, nre), dtype=torch.complex64, device=dev)
+    # PDCCH DMRS on every CORESET RB, per symbol
+    crb = cs.offset_rb + np.arange(cs.nof_prb)
+    for l in range(cs.duration):
+        k = torch.as_tensor((crb[:, None] * 12 + np.array([1, 5, 9])).reshape(-1), device=dev)
+        grid[:, l, k] = torch.as_tensor(C0._pdcch_dmrs(pci, 0, l, cs.nof_prb), device=dev)
+    cands = C0.type0_candidates(cs.nof_prb * cs.duration // 6)
+    sent = []
+    for i in range(b):
+        l_agg = levels[i % len(levels)]
+        ncce = int(rng.choice([c for lv, c in cands if lv == l_agg]))
+        rbs = np.asarray(C0.interleaved_candidate_rbs(cs, ncce, l_agg))
+        e = 2 * cs.duration * len(rbs) * 9
+        coded = polar_3gpp.dci_encode(payload[i:i + 1], e, SI_RNTI_NR)
+        scr = torch.as_tensor(polar_3gpp.pdcch_scramble_seq(e, pci).astype(np.int8),
+                              device=dev)
+        syms = modem.modulate("qpsk", torch.bitwise_xor(coded.to(torch.int8), scr))[0]
+        k = ((cs.offset_rb + rbs)[:, None] * 12 + np.array(C0._DATA_OFF)).reshape(-1)
+        for l in range(cs.duration):
+            m = len(k)
+            grid[i, l, torch.as_tensor(k, device=dev)] = syms[l * m:(l + 1) * m]
+        sent.append((l_agg, ncce))
+    # the SIB1 PDSCH over CORESET#0's 96 PRB, time row 0 (S 2, L 12)
+    _, s_sym, l_sym = C0.TIME_DEFAULT_A_POS2[0]
+    dmrs_syms = C0.dmrs_positions_type_a(s_sym + l_sym)
+    data_syms = [l for l in range(s_sym, s_sym + l_sym) if l not in dmrs_syms]
+    qm, r = ra_nr.mcs_to_qm_r(mcs)
+    tbs = ra_nr.tbs(cs.nof_prb, mcs, nof_symb=l_sym, nof_dmrs_re=12 * len(dmrs_syms))
+    sc = torch.arange(cs.offset_rb * 12, (cs.offset_rb + cs.nof_prb) * 12, device=dev)
+    g_bits = len(data_syms) * len(sc) * qm
+    seg = sch_nr.nr_segment(tbs, g_bits, qm, 0, target_rate=r)
+    sib1 = torch.randint(0, 2, (b, tbs), generator=gen, device=dev, dtype=torch.int8)
+    cw = sch_nr.encode(seg, sib1)
+    scr = sequence.gold_sequence_np(((SI_RNTI_NR << 15) + pci) % (1 << 31), g_bits)
+    syms = modem.modulate({2: "qpsk", 4: "16qam", 6: "64qam"}[qm], torch.bitwise_xor(
+        cw.to(torch.int8), torch.as_tensor(scr.astype(np.int8), device=dev)))
+    grid[:, torch.as_tensor(data_syms, device=dev)[:, None], sc] = syms.reshape(
+        b, len(data_syms), len(sc))
+    for l in dmrs_syms:
+        grid[:, l, sc[::2]] = np.sqrt(2) * torch.as_tensor(
+            C0._sch_dmrs(pci, 0, l, 0, cs.nof_prb), device=dev)
+    # OFDM with the 38.211 §5.4 upconversion phase e^{-j2π f_c t_l}
+    X = grid.new_zeros((b, 14, n))
+    X[..., -(nre // 2):] = grid[..., :nre // 2]
+    X[..., :nre // 2] = grid[..., nre // 2:]
+    _, ph = C0._slot_tables(nof_prb, n, fc_hz, 0, dev)
+    x = torch.fft.ifft(X if ph is None else X / ph, dim=-1) * np.sqrt(n)
+    cp = [n * (160 if l in (0, 7) else 144) // 2048 for l in range(14)]
+    x = torch.cat([torch.cat([x[:, l, -cp[l]:], x[:, l]], dim=-1) for l in range(14)], dim=-1)
+    return awgn.awgn(x, 10.0 ** (-snr_db / 10.0), generator=gen), payload, sent, sib1
+
+
+def nr_sib_path(dev, card: str) -> dict:
+    """NR CORESET#0 + SIB1 from samples at 20 MHz / 15 kHz: ``nr_slot_grid``
+    (with fc_hz) → ``blind_decode_type0`` → ``decode_pdsch_common`` on the
+    grant read from each decoded DCI, every DCI and SIB1 bit checked, an
+    unsent RNTI finding nothing, one capture again on the CPU; then CSI-RS
+    at 273 PRB / 30 kHz over NR_CSI_BATCH slots at 0-25 dB, each SINR within
+    3 dB of the SNR put in and the CQIs equal to the CPU's.  No turbo kernel
+    may launch."""
+    from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import coreset0 as C0, csi_nr, dci_nr, grid_nr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    reset_counts()
+    point_a = NR_SIB_FC_HZ - NR_SIB_PRB * 6 * 15e3
+    cs = C0.coreset_zero(NR_SIB_PCI, NR_SIB_SSB_HZ, NR_SIB_CORESET0)
+    a = dci_nr.DciNr10(n_rb=cs.nof_prb).nof_bits
+    x, payload, sent, sib1 = nr_sib_captures(dev, gen, rng, cs, a)
+    log(f"nr sib path: {NR_SIB_PRB} PRB at 15 kHz, CORESET#0 index {NR_SIB_CORESET0} "
+        f"({cs.nof_prb} PRB x {cs.duration} symbols at RB {cs.offset_rb}; SSB centre "
+        f"{NR_SIB_SSB_HZ / 1e6:.2f} MHz above pointA {point_a / 1e6:.3f} MHz), {NR_SIB_BATCH} "
+        f"captures at {NR_SIB_SNR_DB} dB, DCI 1_0 of {a} bits at L = 4, 8, 16, SIB1 TBS "
+        f"{sib1.shape[1]} at MCS {NR_SIB_MCS}")
+
+    def field(bits, lo, w):
+        return int("".join(str(int(v)) for v in bits[lo:lo + w]), 2)
+
+    def receive(samples, rnti=SI_RNTI_NR):
+        grid = C0.nr_slot_grid(samples, NR_SIB_PRB, NR_SIB_SYMBOL_SZ, fc_hz=NR_SIB_FC_HZ)
+        hit = C0.blind_decode_type0_batch(grid, NR_SIB_PCI, 0, cs, rnti, a)
+        return grid, hit
+
+    def pdsch(grid, hit):
+        bits = hit["bits"][0].cpu().numpy()
+        rb = dci_nr._riv_bits(cs.nof_prb)
+        riv, time_assign, mcs = field(bits, 0, rb), field(bits, rb, 4), field(bits, rb + 5, 5)
+        return C0.decode_pdsch_common(grid, NR_SIB_PCI, 0, SI_RNTI_NR, cs.offset_rb, riv,
+                                      cs.nof_prb, time_assign, mcs)
+
+    grid, hit = receive(x)
+    res = pdsch(grid, hit)
+    miss = receive(x, 0x1234)[1]
+    where = [hit["candidates"][int(i)] for i in hit["index"].cpu()]
+    g1, h1 = receive(x[:1].cpu())
+    r1 = pdsch(g1, h1)
+    checks = {"every DCI found with its bits": bool(hit["found"].all())
+              and torch.equal(hit["bits"].to(torch.int8), payload),
+              "at the candidate sent": where == sent,
+              "the grant: 96 PRB, time row 0": res["rb"] == (0, cs.nof_prb)
+              and res["syms"] == (2, 12) and res["tbs"] == sib1.shape[1],
+              "every SIB1 CRC and bit": bool(res["crc_ok"].all())
+              and torch.equal(res["bits"], sib1),
+              "the unsent RNTI finds nothing": not bool(miss["found"].any()),
+              "one capture on the CPU": torch.equal(h1["bits"], hit["bits"][:1].cpu())
+              and torch.equal(h1["index"], hit["index"][:1].cpu())
+              and torch.equal(r1["bits"], res["bits"][:1].cpu())
+              and torch.equal(r1["crc_ok"], res["crc_ok"][:1].cpu())
+              and float((g1 - grid[:1].cpu()).abs().max()) <= 1e-3}
+    out = {"slot_grid": timed_point(lambda: C0.nr_slot_grid(x, NR_SIB_PRB, NR_SIB_SYMBOL_SZ,
+                                                            fc_hz=NR_SIB_FC_HZ), card,
+                                    f"nr sib path: slot grids of {NR_SIB_BATCH}"),
+           "type0_search": timed_point(lambda: C0.blind_decode_type0_batch(
+               grid, NR_SIB_PCI, 0, cs, SI_RNTI_NR, a), card,
+               f"nr sib path: Type0 search of {NR_SIB_BATCH}"),
+           "sib1_pdsch": timed_point(lambda: pdsch(grid, hit), card,
+                                     f"nr sib path: SIB1 PDSCH of {NR_SIB_BATCH}")}
+
+    # ---- CSI-RS at 273 PRB / 30 kHz ---------------------------------------
+    car = grid_nr.NrCarrierConfig(**NR_CARRIER)
+    csi = csi_nr.CsiRsConfig(carrier=car, slot=NR_SLOT)
+    snr = torch.linspace(0.0, 25.0, NR_CSI_BATCH, device=dev)
+    h = torch.polar(0.5 + torch.rand(NR_CSI_BATCH, generator=gen, device=dev),
+                    2 * np.pi * torch.rand(NR_CSI_BATCH, generator=gen, device=dev))
+    tx = csi_nr.put_csi_rs(csi, torch.zeros((NR_CSI_BATCH, 14, car.nre), dtype=torch.complex64,
+                                            device=dev))
+    nv = (10.0 ** (-snr / 10.0) * h.abs() ** 2)[:, None, None]
+    rx = tx * h[:, None, None] + awgn.awgn(torch.zeros_like(tx), 1.0, generator=gen) * nv.sqrt()
+    m = csi_nr.measure(csi, rx)
+    rep, rep_cpu = csi_nr.generate_report(m["sinr_db"]), csi_nr.generate_report(
+        csi_nr.measure(csi, rx.cpu())["sinr_db"])
+    err = (m["sinr_db"] - snr).abs()
+    checks["CSI-RS SINR within 3 dB of the SNR"] = bool((err < 3.0).all())
+    checks["CQIs equal to the CPU's"] = torch.equal(rep["cqi"].cpu(), rep_cpu["cqi"])
+    out["csi_rs"] = timed_point(lambda: csi_nr.generate_report(csi_nr.measure(csi, rx)["sinr_db"]),
+                                card, f"nr sib path: CSI-RS measure + report of {NR_CSI_BATCH}")
+    checks["no turbo kernel launched"] = not any(launch_counts().values())
+    if not all(checks.values()):
+        raise AssertionError(f"nr sib path: {checks}; candidates {where[:6]} vs {sent[:6]}")
+    log(f"[{card}] nr sib path: every check passed ({', '.join(checks)}); CSI-RS |SINR - SNR| "
+        f"max {float(err.max()):.2f} dB, CQIs {sorted(set(rep['cqi'].tolist()))}; "
+        + "; ".join(f"{k} {v['ms']:.2f} ms, device {v['device_ms']:.3f} ms in "
+                    f"{v['kernels']:.0f} kernels, idle {v['idle']:.3f}" for k, v in out.items()))
+    out["csi_sinr_err_db_max"] = float(err.max())
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         sys.exit(2)
+    t_start = time.perf_counter()
+    phase_s: dict[str, float] = {}
+
+    def phase(fn, *args):
+        """Run one phase, logging its seconds."""
+        t0 = time.perf_counter()
+        res = fn(*args)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        log(f"phase {fn.__name__}: {phase_s[fn.__name__]:.1f} s")
+        return res
 
     from srsran_4g_tpu_torch.channel import awgn
     from srsran_4g_tpu_torch.models import grid, pdsch
@@ -2850,20 +3530,24 @@ def main() -> None:
                               turbo="fused_kernel" if kernel != "bf16" else "windowed_kernel")
         path_device_ms[kernel] = dict(zip(("decode_device_ms", "kernel_device_ms"), prof or ()))
     os.environ.pop("TURBO_KERNEL", None)
-    mimo_lane(dev, gen, card)
-    default_route = mcs23_path(dev, gen, card, kern)
-    dl_path(dev, gen, card)
-    probe_kernels = probes_phase(card)
-    control_path(dev, gen, card)
-    new_paths = {"ul_path": (ul_path(dev, gen, card), UL_CBS, UL_K, UL_L),
-                 "mbsfn_path": (mbsfn_path(dev, gen, card), PMCH_CBS, PMCH_K, PMCH_L)}
-    sync_path(dev, gen, card)
-    system = system_path(dev, card)
-    process = process_path(dev, card)
-    nr = nr_path(dev, card)
+    phase(mimo_lane, dev, gen, card)
+    default_route = phase(mcs23_path, dev, gen, card, kern)
+    phase(dl_path, dev, gen, card)
+    probe_kernels = phase(probes_phase, card)
+    phase(control_path, dev, gen, card)
+    new_paths = {"ul_path": (phase(ul_path, dev, gen, card), UL_CBS, UL_K, UL_L),
+                 "mbsfn_path": (phase(mbsfn_path, dev, gen, card), PMCH_CBS, PMCH_K, PMCH_L)}
+    phase(sync_path, dev, gen, card)
+    system = phase(system_path, dev, card)
+    process = phase(process_path, dev, card)
+    nr = phase(nr_path, dev, card)
     log(f"[{card}] nr path: " + json.dumps(nr))
-    nr_system = nr_system_path(dev, card)
+    nr_system = phase(nr_system_path, dev, card)
     log(f"[{card}] nr system path: " + json.dumps(nr_system))
+    sidelink = phase(sidelink_path, dev, card)
+    log(f"[{card}] sidelink path: " + json.dumps(sidelink))
+    log(f"[{card}] nbiot path: " + json.dumps(phase(nbiot_path, dev, card)))
+    log(f"[{card}] nr sib path: " + json.dumps(phase(nr_sib_path, dev, card)))
     fused16_paths = {}
     for key, (entry, cbs, k_cb, l_win) in new_paths.items():
         nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)
@@ -2908,7 +3592,11 @@ def main() -> None:
                                      runs=process["runs"], phy_e2e=process["phy_e2e"])}
                if wrapper in SYS_WRAPPERS else {}),
             **(fused16_paths if route == "map_fused16" else {}),
+            **({"sidelink_path": sidelink["entries"][wrapper]}
+               if route in ("map_fused16", "turbo_map") else {}),
             **path_device_ms.get(path, {})))
+    log(f"[{card}] phase seconds: {json.dumps(phase_s)}; the whole script "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + probe_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,12 @@ from srsran_4g_tpu_torch import resolve_device
 from srsran_4g_tpu_torch.channel.fading import FadingConfig
 from srsran_4g_tpu_torch.channel.impairments import DelayConfig, HstConfig, RlfConfig
 from srsran_4g_tpu_torch.models.chest import ChestConfig
+from srsran_4g_tpu_torch.models.coreset0 import Coreset0
+from srsran_4g_tpu_torch.models.csi_nr import CsiRsConfig
 from srsran_4g_tpu_torch.models.grid import CellConfig
 from srsran_4g_tpu_torch.models.grid_nr import NrCarrierConfig
 from srsran_4g_tpu_torch.models.meas import PowerCtrlConfig, PowerCtrlState
+from srsran_4g_tpu_torch.models.nbiot_data import NpdschConfig
 from srsran_4g_tpu_torch.models.pdsch import PdschConfig
 from srsran_4g_tpu_torch.models.pdsch_mimo import PdschMimoConfig
 from srsran_4g_tpu_torch.models.pdcch_nr import CoresetConfig
@@ -33,6 +36,8 @@ from srsran_4g_tpu_torch.models.pucch_nr import PucchNrF0Config, PucchNrF1Config
 from srsran_4g_tpu_torch.models.pusch import PuschConfig
 from srsran_4g_tpu_torch.models.pusch_nr import NrUciCfg, PuschNrConfig, PuschNrUciConfig
 from srsran_4g_tpu_torch.models.sch_nr import NrSegm
+from srsran_4g_tpu_torch.models.sidelink import MibSl, PscchConfig, PsschConfig
+from srsran_4g_tpu_torch.models.sl_rx import SlPool
 from srsran_4g_tpu_torch.models.srs import SrsConfig
 from srsran_4g_tpu_torch.models.ssb import SsbConfig
 from srsran_4g_tpu_torch.models.uci import UciCfg
@@ -146,6 +151,43 @@ def nr_segm_from_dict(d: dict) -> NrSegm:
     fields["e_bits"] = tuple(fields["e_bits"])
     fields["data_lens"] = tuple(fields["data_lens"])
     return NrSegm(**fields)
+
+
+def pscch_config_from_dict(d: dict) -> PscchConfig:
+    return PscchConfig(**d)
+
+
+def pssch_config_from_dict(d: dict) -> PsschConfig:
+    return PsschConfig(**d)
+
+
+def sl_pool_from_dict(d: dict) -> SlPool:
+    """``SlPool`` from ``dataclasses.asdict`` of the JAX one, its subframe
+    bitmaps as int8 arrays."""
+    fields = dict(d)
+    for k in ("pscch_sf_bitmap", "pssch_sf_bitmap"):
+        fields[k] = np.asarray(fields[k], np.int8)
+    return SlPool(**fields)
+
+
+def mib_sl_from_dict(d: dict) -> MibSl:
+    return MibSl(**d)
+
+
+def npdsch_config_from_dict(d: dict) -> NpdschConfig:
+    return NpdschConfig(**d)
+
+
+def coreset0_from_dict(d: dict) -> Coreset0:
+    return Coreset0(**d)
+
+
+def csi_rs_config_from_dict(d: dict) -> CsiRsConfig:
+    """``CsiRsConfig`` from ``dataclasses.asdict`` of the JAX one, with its
+    nested carrier."""
+    fields = dict(d)
+    fields["carrier"] = NrCarrierConfig(**fields["carrier"])
+    return CsiRsConfig(**fields)
 
 
 def softbuffers_from_numpy(d: dict, device: torch.device | str | None = None

@@ -18,7 +18,10 @@ criteria of ``tests/test_three_process_e2e.py``; the NR SA system path
 (``tools.run_nr``) at 273 PRB held to the criteria of
 ``tests/test_run_nr.py`` with no turbo kernel launched, and the PDCCH-NR
 blind search over a 273 PRB CORESET (one batched polar decode a level)
-equal on the card and the CPU bit for bit.
+equal on the card and the CPU bit for bit; the 20 MHz V2X TM4 receiver
+(``models/sl_rx``) over 8 data subframes, an NB-IoT batch of 64 and the
+CORESET#0 + SIB1 receiver at 106 PRB on the card equal to the CPU (the
+sidelink and SIB1 captures from ``chip_smoke.py``'s transmitters).
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -31,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from srsran_4g_tpu_torch.channel import awgn, fading
 from srsran_4g_tpu_torch.models import (chest, dci_nr, enb_dl, grid, grid_nr, pbch, pcfich,
                                         pdcch, pdcch_nr, pdsch, pdsch_mimo, pdsch_nr, phich, pmch,
@@ -523,3 +527,94 @@ def test_pdcch_nr_blind_search_on_card_matches_cpu(cuda_device):
             assert bool(want["found"].all())
         else:
             assert not bool(want["found"].any())
+
+
+def test_sidelink_tm4_100prb_on_card_matches_cpu(cuda_device):
+    """chip_smoke.py's 20 MHz V2X TM4 stream cut to 8 data subframes (two
+    48-PRB vehicles or one 96-PRB vehicle a subframe, MCS 22): the SLSS sync
+    and ``decode_capture`` on the card equal the CPU's, every SCI and TB
+    decoded, both default-route turbo kernels launched."""
+    from srsran_4g_tpu_torch.models import sidelink as SL, sl_rx
+
+    pool = sl_rx.SlPool.default(100, 4)
+    mib = SL.MibSl(sl_bandwidth=100, direct_frame_number=517, in_coverage=False).pack(v2x=True)
+    x, sent = chip_smoke.sl_tm4_stream(torch.device("cpu"), torch.Generator().manual_seed(14),
+                                       np.random.default_rng(14), pool, 2048,
+                                       chip_smoke.sl_schedule(8, 22), 335, mib, 1234, 30.0)
+    sync = SL.psbch_sync_decode(x.to(cuda_device), 100, 2048, 335, tm=4)
+    assert sync["crc_ok"] and np.array_equal(sync["mib"], mib) and sync["offset"] == 1234 - 8
+    assert sync["offset"] == SL.psbch_sync_decode(x, 100, 2048, 335, tm=4)["offset"]
+    turbo_map.launches.clear()
+    got = sl_rx.decode_capture(x.to(cuda_device), 100, 4, 2048, pool, file_offset=sync["offset"],
+                               max_subframes=9)
+    assert turbo_map.launches["map_fused16"] > 0 and turbo_map.launches["map_windowed"] > 0
+    want = sl_rx.decode_capture(x, 100, 4, 2048, pool, file_offset=sync["offset"],
+                                max_subframes=9)
+    assert got["events"] == want["events"]
+    assert got["num_decoded_sci"] == got["num_decoded_tb"] == len(sent) == 14
+
+
+def test_nbiot_batch_on_card_matches_cpu(cuda_device):
+    """A batch of 64 NB-IoT grids on the card and the CPU: the NSSS search,
+    the r14 NPBCH at frame 35, the NPDCCH search and the NPDSCH at i_tbs 12,
+    i_sf 2 (16 dB) give identical cell ids, bits and CRC flags."""
+    from srsran_4g_tpu_torch.models import nbiot, nbiot_data as nd
+
+    gen = torch.Generator().manual_seed(64)
+    cpu = torch.device("cpu")
+
+    def channel(g, snr_db):
+        return chip_smoke.nb_channel(cpu, gen, g, snr_db)
+
+    zeros = torch.zeros((64, 14, 12), dtype=torch.complex64)
+    mib = torch.randint(0, 2, (64, nbiot.MIB_NB_LEN), generator=gen, dtype=torch.int8)
+    dci = torch.as_tensor(np.tile(nd.DciN1(i_sf=1, mcs=4, ndi=1).pack(), (64, 1)))
+    cfg = nd.NpdschConfig(n_id_ncell=17, rnti=0x4604, i_tbs=12, i_sf=2, sfn=8)
+    tb = torch.randint(0, 2, (64, cfg.tbs), generator=gen, dtype=torch.int8)
+    rx = dict(nsss=channel(nbiot.put_nsss(zeros, 257), 6.0),
+              npbch=channel(nbiot.npbch_encode(17, mib, frame_idx=35, is_r14=True), 8.0),
+              npdcch=channel(nd.npdcch_encode(dci, 0x4604, 17, 1, ncce=1, l_agg=1), 8.0),
+              npdsch=channel(nd.npdsch_encode(cfg, tb), 16.0))
+    runs = dict(nsss=lambda x: nbiot.nsss_detect(x),
+                npbch=lambda x: nbiot.npbch_decode(17, x, block_idx=4, nf=35, is_r14=True),
+                npdcch=lambda x: nd.npdcch_blind_decode(x, 0x4604, 17, 1),
+                npdsch=lambda x: nd.npdsch_decode(cfg, x))
+    for name, run in runs.items():
+        got, want = run(rx[name].to(cuda_device)), run(rx[name])
+        for k, v in want.items():
+            if v.dtype.is_floating_point:
+                np.testing.assert_allclose(got[k].cpu().numpy(), v.numpy(), rtol=1e-4, atol=1e-3)
+            else:
+                assert torch.equal(got[k].cpu(), v), (name, k)
+    assert bool(want["crc_ok"].all()) and torch.equal(want["bits"], tb)
+
+
+def test_sib1_106prb_on_card_matches_cpu(cuda_device):
+    """chip_smoke.py's CORESET#0 + SIB1 captures (106 PRB, index 13, 10 dB),
+    three of them (L = 4, 8, 16): the slot grids, the Type0 search and the
+    SIB1 decode on the card equal the CPU's."""
+    from srsran_4g_tpu_torch.models import coreset0 as C0
+
+    cs = C0.coreset_zero(chip_smoke.NR_SIB_PCI, chip_smoke.NR_SIB_SSB_HZ,
+                         chip_smoke.NR_SIB_CORESET0)
+    a = dci_nr.DciNr10(n_rb=cs.nof_prb).nof_bits
+    x, payload, sent, sib1 = chip_smoke.nr_sib_captures(
+        torch.device("cpu"), torch.Generator().manual_seed(106), np.random.default_rng(106), cs,
+        a, batch=3)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        grid = C0.nr_slot_grid(x.to(dev), 106, 2048, fc_hz=chip_smoke.NR_SIB_FC_HZ)
+        hit = C0.blind_decode_type0_batch(grid, chip_smoke.NR_SIB_PCI, 0, cs, 0xFFFF, a)
+        riv_bits = dci_nr._riv_bits(cs.nof_prb)
+        riv = int("".join(map(str, hit["bits"][0, :riv_bits].tolist())), 2)
+        res = C0.decode_pdsch_common(grid, chip_smoke.NR_SIB_PCI, 0, 0xFFFF, cs.offset_rb, riv,
+                                     cs.nof_prb, 0, chip_smoke.NR_SIB_MCS)
+        out.append((grid.cpu(), hit, res))
+    (g1, h1, r1), (g0, h0, r0) = out
+    np.testing.assert_allclose(g1.numpy(), g0.numpy(), rtol=1e-4, atol=1e-3)
+    for k in ("found", "index", "bits"):
+        assert torch.equal(h1[k].cpu(), h0[k]), k
+    assert [h0["candidates"][int(i)] for i in h0["index"]] == sent
+    assert torch.equal(r1["bits"].cpu(), r0["bits"]) and torch.equal(r1["crc_ok"].cpu(),
+                                                                     r0["crc_ok"])
+    assert bool(r0["crc_ok"].all()) and torch.equal(r0["bits"], sib1)

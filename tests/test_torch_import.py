@@ -23,7 +23,9 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "ops.ldpc", "ops.polar", "ops.polar_3gpp", "models.grid_nr", "models.sch_nr",
             "models.dci_nr", "models.ra_nr", "models.harq_ack_nr", "models.pdsch_nr",
             "models.ssb", "models.ue_sync_nr", "models.pdcch_nr", "models.pucch_nr",
-            "models.pusch_nr", "tools.run_nr",
+            "models.pusch_nr", "tools.run_nr", "models.ra_sl", "models.sidelink",
+            "models.sl_rx", "models.nbiot", "models.nbiot_data", "models.csi_nr",
+            "models.coreset0",
             *(f"utils.{m}" for m in ("io", "log", "metrics", "sys_metrics", "checkpoint",
                                      "crash_handler")),
             *(f"stack.{m}" for m in (
@@ -32,7 +34,7 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
                 "rlc_am", "mac_pdu", "sched", "enb_mac", "ue_mac", "nas_ue", "rrc_idle",
                 "rrc_meas", "rrc_ue", "rrc_enb", "epc", "gtpu", "gtpc", "mbms_gw", "x2", "e2",
                 "e2ap_per", "nas_eps_codec", "mac_pdu_nr", "rlc_nr", "nas_5gs_codec", "nas_5g",
-                "ngap", "rrc_nr_uper", "rrc_nr", "sched_nr", "ue_mac_nr")))
+                "ngap", "rrc_nr_uper", "rrc_nr", "sched_nr", "ue_mac_nr", "rrc_nbiot")))
 
 _CHECK = """
 import importlib, pkgutil, sys
