@@ -130,7 +130,19 @@ read just after:
   candidate, the SIB1 it grants decoded, an unsent RNTI finding nothing, one
   capture again on the CPU; CSI-RS at 273 PRB over 64 slots at 0-25 dB
   (``models/csi_nr``), each SINR within 3 dB, the CQIs equal to the CPU's;
-  no turbo launch.  Each phase's seconds and the whole script's are logged.
+  no turbo launch;
+- the multi-device pipeline (``parallel/``, through ``tools.multichip``, the
+  counterpart of the JAX package's ``dryrun_multichip``), each rank a child
+  process on this card: (a) one rank over NCCL, mesh (1, 1), and (b) two
+  ranks over Gloo, mesh (1, 2) (NCCL refuses two ranks on one card), at the
+  main path's configuration and batch, bits and CRCs exact, the step timed,
+  the sharded FIR and OFDM demod held against the dense ones, at (b) each
+  rank decoding half of the code-block lanes and the halo exchange, grid
+  all_reduce and hard-bit all_gather timed alone; (c) four ranks over Gloo,
+  mesh (2, 2), at the dry run's two configurations; every rank's
+  ``map_fused16`` launches and peak memory; ``map_fused16`` then held against
+  its plain version at a rank's shape of (b).  Each phase's seconds and the
+  whole script's are logged.
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
 ``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
@@ -387,6 +399,18 @@ NR_SIB_PRB, NR_SIB_SYMBOL_SZ, NR_SIB_PCI, NR_SIB_CORESET0 = 106, 2048, 500, 13
 NR_SIB_SSB_HZ, NR_SIB_FC_HZ = 43 * 180e3 + 1.8e6, 2.1e9
 NR_SIB_BATCH, NR_SIB_SNR_DB, NR_SIB_MCS, SI_RNTI_NR = 32, 10.0, 9, 0xFFFF
 NR_CSI_BATCH = 64
+# The multi-device pipeline (parallel/, tools/multichip): ranks as child
+# processes on this one card, at the main path's batch and configuration.
+# (a) one rank over NCCL, mesh (1, 1); (b) two ranks over Gloo, mesh (1, 2),
+# each decoding half of the 128 x 13 code-block lanes (NCCL refuses two ranks
+# on one card); (c) four ranks over Gloo, mesh (2, 2), at the JAX dry run's
+# two configurations and batches.  MC_PER_RANK: map_fused16's shape on a
+# rank of (b): B = 832 code blocks, K = 5824, L = 208, T = 32.
+MC_RUNS = (("a", 1, "nccl", "bench", BATCH), ("b", 2, "gloo", "bench", BATCH),
+           ("c", 4, "gloo", "tiny,bench", None))
+MC_REPS = 3
+MC_TIMEOUT = 240
+MC_PER_RANK = (BATCH * 13 // 2, 5824, 208, 32)
 
 
 def log(msg: str) -> None:
@@ -3412,6 +3436,91 @@ def nr_sib_path(dev, card: str) -> dict:
     return out
 
 
+def multichip_path(dev, card: str, main_decode_s: float) -> dict:
+    """The sharded pipeline (``parallel/pipeline`` through ``tools/multichip``)
+    at MC_RUNS, each rank a child process: bits and CRCs exact at the bench
+    configuration, the step timed (best of MC_REPS), at (a) and (b) the
+    sharded FIR and OFDM demod held against the dense ones (atol 1e-4) and
+    at (b) the halo exchange, the grid all_reduce and the hard-bit
+    all_gather timed alone; every rank's map_fused16 launches, code-block
+    lanes and peak memory; then map_fused16 against its plain version at a
+    rank's shape of (b)."""
+    from srsran_4g_tpu_torch.parallel import dist
+    from srsran_4g_tpu_torch.tools import multichip
+
+    reset_counts()
+    try:
+        dist.check_backend("nccl", 2, dev)
+    except ValueError as e:
+        log(f"multichip path: two ranks on {torch.cuda.device_count()} card(s) go over Gloo: {e}")
+    else:
+        raise AssertionError("NCCL was not refused two ranks on one card")
+    out = {}
+    for name, n, backend, configs, batch in MC_RUNS:
+        t0 = time.perf_counter()
+        res = multichip.launch(n, device=dev.type, backend=backend, configs=configs, batch=batch,
+                               reps=MC_REPS if batch else 0, measure=bool(batch),
+                               timeout=MC_TIMEOUT)
+        wall_s = time.perf_counter() - t0
+        bad = multichip.check(res)
+        dp, sp = multichip.mesh_shape(n)
+        for cname, c0 in res[0]["configs"].items():
+            for r in res:
+                c = r["configs"][cname]
+                others = {k: v for k, v in c["launches"].items() if k != "map_fused16" and v}
+                if not c["launches"].get("map_fused16") or others:
+                    bad.append(f"rank {r['rank']} {cname}: launches {c['launches']}")
+                if cname == "bench" and batch and c["cb_lanes"] != batch * 13 // sp:
+                    bad.append(f"rank {r['rank']}: {c['cb_lanes']} code-block lanes")
+            first = max(r["configs"][cname]["first_ms"] for r in res)
+            timing = f"first step {first:.1f} ms"
+            if "step_ms" in c0:  # the slowest rank's best step
+                step = max(min(r["configs"][cname]["step_ms"]) for r in res)
+                timing = (f"step best {step:.2f} ms ({timing}) = {c0['rows'] / step * 1e3:.1f} "
+                          f"subframes/s; the main path's decode of {BATCH} "
+                          f"{main_decode_s * 1e3:.2f} ms")
+            log(f"[{card}] multichip ({name}) {n} rank(s) over {backend}, mesh dp={dp} sp={sp}, "
+                f"{cname} x {c0['rows']}: metrics {c0['metrics']}; {timing}; map_fused16 "
+                f"launches a rank {[r['configs'][cname]['launches'].get('map_fused16') for r in res]}"
+                f", code-block lanes a rank {c0['cb_lanes']} (K {c0['K']})")
+            for r in res:
+                extra = {k: r["configs"][cname][k]
+                         for k in ("collective_ms", "stream_check", "profile")
+                         if k in r["configs"][cname]}
+                if "profile" in extra:
+                    extra["idle"] = 1 - extra["profile"]["device_ms"] / min(
+                        r["configs"][cname]["step_ms"])
+                if extra:
+                    log(f"[{card}] multichip ({name}) rank {r['rank']} {cname}: {json.dumps(extra)}")
+        log(f"[{card}] multichip ({name}): peak MiB a rank "
+            f"{[r.get('peak_mib') for r in res]}; {wall_s:.1f} s with start-up")
+        if bad:
+            raise AssertionError(f"multichip ({name}): {bad}")
+        out[name] = dict(ranks=n, backend=backend, mesh=dict(dp=dp, sp=sp), wall_s=wall_s,
+                         ranks_results=res)
+    if any(launch_counts().values()):
+        raise AssertionError("the parent launched a turbo kernel in the multichip path")
+
+    # map_fused16 against its plain version at a rank's shape of (b)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, k, l, t = MC_PER_RANK
+    r = check_kernel("map_fused16", gamma_inputs(dev, gen, b, k, l, t), time_it=True)
+    nbytes, adds, maxes = work("map_fused16", b, k, l, t)
+    bound_ms, bound_by = bound(nbytes, adds, maxes, "bf16")
+    rank_b = out["b"]["ranks_results"]
+    launches = [x["configs"]["bench"]["launches"]["map_fused16"] for x in rank_b]
+    log(f"[{card}] map_fused16 at a rank's shape of (b) B={b} K={k} L={l} T={t}: "
+        f"{r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}); plain "
+        f"{r['plain_ms']:.2f} ms; max|diff| {r['max_abs_err']}; launches a rank {launches}")
+    out["map_fused16"] = dict(
+        launches_a_rank=launches, shapes=dict(blocks=b, K=k, L=l, T=t, lanes=b * (k // l)),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound_ms,
+        bound_by=bound_by, bytes=nbytes,
+        step_ms={key: max(min(x["configs"]["bench"]["step_ms"]) for x in out[key]["ranks_results"])
+                 for key in ("a", "b")})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -3505,7 +3614,7 @@ def main() -> None:
     times, _, out = timed_decodes(cfg, rx, DECODE_REPS)
     if not bool(out["crc_ok"].all()):
         raise AssertionError("a timed decode failed its CRC")
-    best = min(times)
+    best = main_decode_s = min(times)
     stages = [staged_decode(cfg, rx) for _ in range(3)][-1]
     log(f"[{card}] decode of {BATCH} subframes: best {best * 1e3:.2f} ms of "
         f"{DECODE_REPS} ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms) = "
@@ -3548,6 +3657,7 @@ def main() -> None:
     log(f"[{card}] sidelink path: " + json.dumps(sidelink))
     log(f"[{card}] nbiot path: " + json.dumps(phase(nbiot_path, dev, card)))
     log(f"[{card}] nr sib path: " + json.dumps(phase(nr_sib_path, dev, card)))
+    multi = phase(multichip_path, dev, card, main_decode_s)
     fused16_paths = {}
     for key, (entry, cbs, k_cb, l_win) in new_paths.items():
         nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)
@@ -3594,6 +3704,7 @@ def main() -> None:
             **(fused16_paths if route == "map_fused16" else {}),
             **({"sidelink_path": sidelink["entries"][wrapper]}
                if route in ("map_fused16", "turbo_map") else {}),
+            **({"multichip_path": multi["map_fused16"]} if route == "map_fused16" else {}),
             **path_device_ms.get(path, {})))
     log(f"[{card}] phase seconds: {json.dumps(phase_s)}; the whole script "
         f"{time.perf_counter() - t_start:.1f} s")

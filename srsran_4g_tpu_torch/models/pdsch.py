@@ -20,6 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed import ProcessGroup
 
 from srsran_4g_tpu_torch import resolve_device
 from srsran_4g_tpu_torch.models import chest as chest_mod
@@ -162,14 +163,16 @@ def decode(
     softbuffers: dict | None = None,
     n_iter: int = 5,
     chest_cfg: chest_mod.ChestConfig | None = None,
-    cb_shard: tuple[str, int] | None = None,
+    cb_shard: tuple[ProcessGroup, int] | None = None,
 ) -> dict:
     """Decode PDSCH from a received resource grid (B, nsymb, nre), on the
     grid's device.
 
     If ``h``/``noise_var`` are not given, they are estimated from the CRS:
     h is (B, nsymb, nre) for 1 port and (B, P, nsymb, nre) for 2/4 ports,
-    noise_var the mean of the per-port estimates.
+    noise_var the mean of the per-port estimates.  ``cb_shard`` (a process
+    group and its size) splits the turbo decode's code-block lanes over the
+    group's ranks (``sch.dlsch_decode``).
     Returns dict(bits, crc_ok, softbuffers, h, noise_var, snr_db?).
     """
     out: dict = {}

@@ -18,11 +18,14 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as tdist
+from torch.distributed import ProcessGroup
 
 from srsran_4g_tpu_torch.ops import crc as crc_ops
 from srsran_4g_tpu_torch.ops import rate_match as rm
 from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cbsegm import CbSegm, cbsegm
+from srsran_4g_tpu_torch.parallel import dist
 
 _FILLER_LLR = -64.0  # fillers are known 0-bits (negative ⇒ bit 0)
 
@@ -114,7 +117,7 @@ def dlsch_decode(
     n_iter: int = 5,
     window: int | None = 208,
     early_stop: bool = True,
-    cb_shard: tuple[str, int] | None = None,
+    cb_shard: tuple[ProcessGroup, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict[int, torch.Tensor]]:
     """Decode transport blocks from codeword LLRs.
 
@@ -122,14 +125,18 @@ def dlsch_decode(
       llrs: (B, G) float32, positive ⇒ bit 1.
       softbuffers: per-CB-index (B, 3, K+4) accumulated LLRs from earlier
         HARQ transmissions (as returned by this function), or None.
-      cb_shard: code-block sharding across devices; not ported yet (the
-        multi-device slice), so it must be None.
+      cb_shard: optional (process_group, group_size) — split the stacked
+        (B·C) code-block lanes of each turbo decode over the group's ranks
+        (sp stream parallelism): the lanes are padded with zero LLRs to a
+        multiple of the size, each rank decodes its contiguous share, and
+        the hard bits are all-gathered back in rank order, so no rank
+        decodes redundantly and every rank returns the whole result.  Each
+        rank's early stop is its own; a block's bits do not depend on the
+        split, since the decoder freezes each block that passes.
 
     Returns:
       (tb_bits (B, tbs) int8, crc_ok (B,) bool, softbuffers dict).
     """
-    if cb_shard is not None:
-        raise NotImplementedError("cb_shard comes with the multi-device port")
     s = plan.segm
     b = llrs.shape[0]
     new_soft: dict[int, torch.Tensor] = {}
@@ -155,8 +162,12 @@ def dlsch_decode(
             cb_idx += 1
         # one decoder call per size group over (B*count, 3, K+4)
         stacked = torch.stack(d_group, dim=1).reshape(b * grp.count, 3, grp.K + 4)
-        hard, _ = turbo.turbo_decode(stacked, n_iter=n_iter, window=window,
-                                     early_crc=early)
+        if cb_shard is not None:
+            hard = _decode_sharded(stacked, cb_shard, n_iter=n_iter, window=window,
+                                   early_crc=early)
+        else:
+            hard, _ = turbo.turbo_decode(stacked, n_iter=n_iter, window=window,
+                                         early_crc=early)
         hard = hard.reshape(b, grp.count, grp.K)
         for i in range(grp.count):
             bits = hard[:, i]
@@ -170,3 +181,22 @@ def dlsch_decode(
     if cb_crc_ok:
         tb_ok = tb_ok & torch.stack(cb_crc_ok, dim=-1).all(dim=-1)
     return full[:, :plan.tbs], tb_ok, new_soft
+
+
+def _decode_sharded(stacked: torch.Tensor, cb_shard: tuple[ProcessGroup, int],
+                    **decode_args) -> torch.Tensor:
+    """Turbo-decode this rank's contiguous share of the (N, 3, K+4) lanes,
+    padded with zero LLRs to a multiple of the group size, and all-gather
+    every rank's hard bits → (N, K) int8."""
+    group, size = cb_shard
+    if size != tdist.get_world_size(group):
+        raise ValueError(f"cb_shard size {size} != {tdist.get_world_size(group)} ranks "
+                         "in its group")
+    n_lanes = stacked.shape[0]
+    pad = (-n_lanes) % size
+    if pad:
+        stacked = torch.cat([stacked, stacked.new_zeros((pad,) + stacked.shape[1:])])
+    loc = stacked.shape[0] // size
+    i = tdist.get_rank(group)
+    hard_loc, _ = turbo.turbo_decode(stacked[i * loc:(i + 1) * loc], **decode_args)
+    return torch.cat(dist.all_gather(hard_loc, group))[:n_lanes]

@@ -41,7 +41,7 @@ from srsran_4g_tpu_torch.models import (chest, dci_nr, enb_dl, grid, grid_nr, pb
                                         prach, pusch, uci, ue_dl)
 from srsran_4g_tpu_torch.ops import polar_3gpp, turbo
 from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
-from srsran_4g_tpu_torch.tools import run_lte, run_nr, three_process
+from srsran_4g_tpu_torch.tools import multichip, run_lte, run_nr, three_process
 
 torch.set_num_threads(2)
 
@@ -618,3 +618,35 @@ def test_sib1_106prb_on_card_matches_cpu(cuda_device):
     assert torch.equal(r1["bits"].cpu(), r0["bits"]) and torch.equal(r1["crc_ok"].cpu(),
                                                                      r0["crc_ok"])
     assert bool(r0["crc_ok"].all()) and torch.equal(r0["bits"], sib1)
+
+
+def _multichip_checks(results):
+    bad = multichip.check(results)
+    for r in results:
+        for name, c in r["configs"].items():
+            if not c["launches"].get("map_fused16"):
+                bad.append(f"rank {r['rank']} {name}: no map_fused16 launch")
+    return bad
+
+
+def test_multichip_nccl_one_rank_6prb(cuda_device):
+    """tools/multichip at one rank over NCCL, mesh (1, 1), the tiny (6 PRB)
+    configuration on the card: a finite BLER, map_fused16 launched."""
+    res = multichip.launch(1, device="cuda", backend="nccl", configs="tiny", timeout=300)
+    assert _multichip_checks(res) == []
+    assert res[0]["backend"] == "nccl" and res[0]["mesh"] == {"dp": 1, "sp": 1}
+
+
+def test_multichip_gloo_two_ranks_one_card(cuda_device):
+    """Two ranks over Gloo on one card, mesh (1, 2): the bench configuration
+    (100 PRB 64QAM TBS 75376) bit-exact with every CRC, each rank decoding
+    half of the code-block lanes, and the sharded FIR and OFDM demod within
+    atol 1e-4 of the dense ones."""
+    res = multichip.launch(2, device="cuda", backend="gloo", configs="tiny,bench",
+                           measure=True, timeout=300)
+    assert _multichip_checks(res) == []
+    for r in res:
+        bench = r["configs"]["bench"]
+        assert bench["metrics"]["bit_errors"] == 0 and bench["metrics"]["bler"] == 0
+        assert bench["cb_lanes"] == 7  # 13 lanes padded to 14, over 2 ranks
+        assert max(bench["stream_check"].values()) <= multichip.STREAM_ATOL
