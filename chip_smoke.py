@@ -93,10 +93,10 @@ read just after:
   alone failing at 8 dB, rv 2 combined onto its soft-buffers), every CRC and
   bit checked, timed, profiled (the LDPC decode also alone) and slot 0
   decoded again on the CPU with identical bits and CRC flags; the NR CRC
-  polynomials at 213176 bits against long division; DCI 1_0 through the
-  38.212 polar chain (``ops/polar_3gpp``) at aggregation levels 1-16, with
-  an RNTI that was not sent failing every CRC.  NR has no kernel of its own:
-  no turbo kernel may launch there;
+  polynomials at 213176 bits against the host's integer CRC (``crc_np``);
+  DCI 1_0 through the 38.212 polar chain (``ops/polar_3gpp``) at
+  aggregation levels 1-16, with an RNTI that was not sent failing every CRC.
+  NR has no kernel of its own: no turbo kernel may launch there;
 - the NR SA system path (``srsran_4g_tpu_torch.tools.run_nr.run``, the
   counterpart of the JAX package's tools/run_nr.py) at 100 MHz (273 PRB,
   30 kHz), 80 slots at 20 dB: SSB search, PRACH, RAR, RRC setup, 5G-AKA
@@ -141,8 +141,19 @@ read just after:
   all_reduce and hard-bit all_gather timed alone; (c) four ranks over Gloo,
   mesh (2, 2), at the dry run's two configurations; every rank's
   ``map_fused16`` launches and peak memory; ``map_fused16`` then held against
-  its plain version at a rank's shape of (b).  Each phase's seconds and the
-  whole script's are logged.
+  its plain version at a rank's shape of (b);
+- the error-rate tools (``tools.ber_sweep``, ``tools.bler_sweep``, the
+  counterparts of the JAX package's tools/ber_sweep.py and bler_sweep.py) at
+  1,024 frames a point into a temporary directory: the turbo BER at K = 6144
+  over 0-3 dB in steps of 0.25 (5 iterations, no early stop: ``map_fused16``
+  launched 10 times a point at B = 1024, L = 128), the LDPC chain (TBS 4224,
+  0.5-4 dB) and the 50 PRB PDSCH (QPSK, 16QAM, 64QAM, 5 points each); at
+  every point in the waterfall (and the BER points on either side of it,
+  each PDSCH case's lowest point with BLER < 1) the decode again with
+  ``map_fused16``'s plain version, bits, flags and APP LLRs identical; no
+  errors at the clean points, every curve non-increasing within three
+  binomial standard errors; ``map_fused16`` timed at the sweep's shape.
+  Each phase's seconds and the whole script's are logged.
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
 ``map_windowed16``, ``map_v3`` and ``map_fused`` (radix 2 and 4) are held
@@ -164,11 +175,14 @@ there is no CPU fallback.  Imports nothing of JAX or of srsran_4g_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.metadata
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -411,6 +425,17 @@ MC_RUNS = (("a", 1, "nccl", "bench", BATCH), ("b", 2, "gloo", "bench", BATCH),
 MC_REPS = 3
 MC_TIMEOUT = 240
 MC_PER_RANK = (BATCH * 13 // 2, 5824, 208, 32)
+# The error-rate tools (tools/ber_sweep, tools/bler_sweep) at their own
+# grids and widths, with SWEEP_FRAMES frames (code blocks, TBs) a point: the
+# turbo BER at K = 6144 (13 points, 5 iterations, no early stop, so 10
+# map_fused16 launches a point at B = 1024, L = 128), the LDPC chain and the
+# 50 PRB PDSCH.  Zero errors are required at and above SWEEP_TURBO_CLEAN dB
+# (turbo BER and FER) and SWEEP_LDPC_CLEAN dB (LDPC BLER), and at the two
+# highest points of each PDSCH case.
+SWEEP_FRAMES = 1024
+SWEEP_K, SWEEP_ITERS = 6144, 5
+SWEEP_EBN0 = (0.0, 3.0, 0.25)  # the BER tool's default grid: min, max, step
+SWEEP_TURBO_CLEAN, SWEEP_LDPC_CLEAN = 1.5, 2.0
 
 
 def log(msg: str) -> None:
@@ -2278,20 +2303,6 @@ def process_path(dev, card: str) -> dict:
     return dict(entries=entries, runs=runs, phy_e2e=e2e)
 
 
-def crc_ref(bits: np.ndarray, key: str) -> np.ndarray:
-    """CRC by polynomial long division, one bit at a time (MSB first, zero
-    initial state): the reference for the port's CRC matmul."""
-    from srsran_4g_tpu_torch.utils.constants import CRC_POLYS
-
-    poly, order = CRC_POLYS[key]
-    reg = 0
-    for b in bits.tolist() + [0] * order:
-        reg = (reg << 1) | b
-        if reg >> order:
-            reg ^= poly
-    return np.asarray([(reg >> (order - 1 - i)) & 1 for i in range(order)], np.int8)
-
-
 def nr_point(dev, gen, card: str, mod: str, tbs: int, snr_db: float, n_cb: int,
              harq: bool = False) -> dict:
     """One NR PDSCH point at 100 MHz: encode → AWGN → decode of NR_BATCH slots
@@ -2427,9 +2438,9 @@ def dci_path(dev, gen, card: str) -> dict:
 
 def nr_path(dev, card: str) -> dict:
     """The NR PDSCH at 100 MHz on the card (NR_POINTS, then the HARQ IR
-    point), the NR CRC polynomials at the TB length against long division,
-    then DCI polar coding at every aggregation level.  No turbo kernel may
-    launch: NR uses none."""
+    point), the NR CRC polynomials at the TB length against the host's
+    integer CRC (``crc.crc_np``), then DCI polar coding at every aggregation
+    level.  No turbo kernel may launch: NR uses none."""
     from srsran_4g_tpu_torch.ops import crc
 
     reset_counts()
@@ -2437,11 +2448,10 @@ def nr_path(dev, card: str) -> dict:
     bits = torch.randint(0, 2, (2, NR_CRC_BITS), generator=gen, device=dev, dtype=torch.int8)
     for key in ("24A", "24C", "11", "6"):
         got = crc.crc_compute(bits, key).cpu().numpy()
-        want = np.stack([crc_ref(b, key) for b in bits.cpu().numpy()])
-        if not np.array_equal(got, want):
-            raise AssertionError(f"CRC {key} at {NR_CRC_BITS} bits differs from long division")
+        if not np.array_equal(got, crc.crc_np(bits.cpu().numpy(), key)):
+            raise AssertionError(f"CRC {key} at {NR_CRC_BITS} bits differs from crc_np's")
     log(f"nr path: CRC 24A, 24C, 11 and 6 of {NR_CRC_BITS}-bit messages on the card equal "
-        f"long division")
+        f"the host's integer CRC")
     points = {p[0]: nr_point(dev, gen, card, *p) for p in NR_POINTS}
     points[f"harq {NR_HARQ[0]}"] = nr_point(dev, gen, card, *NR_HARQ, harq=True)
     dci = dci_path(dev, gen, card)
@@ -3521,6 +3531,166 @@ def multichip_path(dev, card: str, main_decode_s: float) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_kernel(name: str):
+    """The wrapper ``name`` of ``ops/cuda/turbo_map`` replaced by its plain
+    version while inside (the attribute swap TurboSpy makes), so that a
+    decode on the card's tensors runs the plain version."""
+    from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+
+    saved = getattr(tm, name)
+    setattr(tm, name, getattr(tm, name + "_ref"))
+    try:
+        yield
+    finally:
+        setattr(tm, name, saved)
+
+
+def check_curve(points: list[tuple[float, float]], n: int, what: str) -> None:
+    """Raise unless the error rates (x, p) fall with x within three standard
+    errors of the binomial over n trials, point to point."""
+    for (x0, p0), (x1, p1) in zip(points, points[1:]):
+        se = math.sqrt((p0 * (1 - p0) + p1 * (1 - p1)) / n)
+        if p1 > p0 + 3 * se:
+            raise AssertionError(f"{what}: {p1} at {x1} above {p0} at {x0} by more than "
+                                 f"3 standard errors ({se:.3g})")
+
+
+def sweep_path(dev, card: str) -> dict:
+    """The error-rate tools on the card at SWEEP_FRAMES frames a point:
+    ``tools.ber_sweep`` (K = 6144, its 13-point Eb/N0 grid, 5 iterations, no
+    early stop), then ``tools.bler_sweep`` (the LDPC chain, 8 points; the 50
+    PRB PDSCH, 3 cases x 5 points), writing to a temporary directory.  Held:
+    map_fused16 launched 2 x iters times a BER point; at every BER point with
+    0 < FER < 1 and the points on either side of the waterfall, hard bits
+    and APP LLRs identical to the same decode with map_fused16's plain
+    version; at every PDSCH point with 0 < BLER < 1 and each case's lowest
+    point with BLER < 1, the CRC flags and bits likewise; no errors at the
+    clean points; every curve non-increasing within three binomial standard
+    errors (over the frames; BER too).  Logs the three tables, seconds and
+    Mb/s a point, peak memory, and map_fused16 at the sweep's shape against
+    its plain version and its bound."""
+    from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+    from srsran_4g_tpu_torch.tools import ber_sweep, bler_sweep
+
+    torch.cuda.reset_peak_memory_stats()
+    n = SWEEP_FRAMES
+    log(f"sweep path: {n} frames a point; turbo K={SWEEP_K}, {SWEEP_ITERS} iterations, "
+        f"window {ber_sweep.WINDOW}; LDPC {bler_sweep.LDPC}; PDSCH {bler_sweep.CELL}")
+    ber_cmp, pdsch_cmp, per_point, seconds = [], [], [], {}
+    state = dict(waterfall=False, clean=False, top=None, below=set())
+
+    def compare_ber(row, llr, hard, app):
+        t0 = time.perf_counter()
+        with plain_kernel("map_fused16"):
+            h_p, a_p = ber_sweep.decode_point(llr, SWEEP_ITERS)
+        err = float((a_p - app).abs().max())
+        if not torch.equal(h_p, hard) or err != 0:
+            raise AssertionError(f"BER point {row['ebn0_db']} dB: map_fused16 differs from its "
+                                 f"plain version (max |diff| {err})")
+        ber_cmp.append(dict(ebn0_db=row["ebn0_db"], fer=row["fer"], max_abs_err=err,
+                            plain_s=time.perf_counter() - t0))
+
+    def on_ber(row, dt, llr, hard, app):
+        per_point.append(tm.launches["map_fused16"] - sum(per_point))
+        seconds[f"turbo/ebn0={row['ebn0_db']:.2f}"] = dt
+        if row["fer"] < 1 and not state["waterfall"]:
+            state["waterfall"] = True
+            if state["top"] is not None:  # the last point with every frame in error
+                compare_ber(*state["top"])
+        if 0 < row["fer"] < 1 or (row["fer"] == 0 and not state["clean"]):
+            compare_ber(row, llr, hard, app)
+        state["clean"] = state["clean"] or row["fer"] == 0
+        state["top"] = (row, llr, hard, app) if row["fer"] == 1 else None
+
+    def on_ldpc(key, row, dt):
+        seconds[key] = dt
+        if any(launch_counts().values()):
+            raise AssertionError(f"the LDPC chain launched turbo kernels: {launch_counts()}")
+
+    def on_pdsch(key, row, dt, inputs, outputs):
+        seconds[key] = dt
+        first_below = row["bler"] < 1 and row["mod"] not in state["below"]
+        if row["bler"] < 1:
+            state["below"].add(row["mod"])
+        if not (0 < row["bler"] < 1 or first_below):
+            return
+        with plain_kernel("map_fused16"):
+            dec, ok = bler_sweep.pdsch_point(*inputs)
+        if not (torch.equal(ok, outputs[1]) and torch.equal(dec, outputs[0])):
+            raise AssertionError(f"{key}: map_fused16 gives other CRC flags or bits than its "
+                                 f"plain version")
+        pdsch_cmp.append(dict(key=key, bler=row["bler"]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        ber = ber_sweep.run(SWEEP_K, n, SWEEP_ITERS, ber_sweep.grid(*SWEEP_EBN0), dev,
+                            os.path.join(tmp, "ber_turbo.json"), on_ber)
+        ber_launches = launch_counts()
+        reset_counts()
+        bler = bler_sweep.run(n, dev, tmp, os.path.join(tmp, "bler_sweep.ckpt.json"),
+                              on_ldpc, on_pdsch)
+        pdsch_launches = launch_counts()
+        written = sorted(os.listdir(tmp))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if written != ["ber_turbo.json", "bler_ldpc.json", "bler_pdsch.json"]:
+        raise AssertionError(f"the sweeps wrote {written}")
+    rows = ber["points"]
+    want = {w: 0 for w in WRAPPERS} | {"map_fused16": 2 * SWEEP_ITERS * len(rows)}
+    if ber_launches != want or per_point != [2 * SWEEP_ITERS] * len(rows):
+        raise AssertionError(f"BER sweep launches {ber_launches}, a point {per_point}")
+    if set(k for k, v in pdsch_launches.items() if v) != {"map_fused16"}:
+        raise AssertionError(f"PDSCH sweep launches {pdsch_launches}")
+    if len(ber_cmp) < 2 or len(pdsch_cmp) < 2 or state["below"] != {
+            c[0] for c in bler_sweep.PDSCH_CASES}:
+        raise AssertionError(f"too few points held against the plain version: BER {ber_cmp}, "
+                             f"PDSCH {pdsch_cmp}")
+    bad = [r for r in rows if r["ebn0_db"] >= SWEEP_TURBO_CLEAN and (r["ber"] or r["fer"])]
+    bad += [r for r in bler["ldpc"] if r["ebn0_db"] >= SWEEP_LDPC_CLEAN and r["bler"]]
+    for mod, _, _ in bler_sweep.PDSCH_CASES:
+        bad += [r for r in [r for r in bler["pdsch"] if r["mod"] == mod][-2:] if r["bler"]]
+    if bad:
+        raise AssertionError(f"errors at points that must be clean: {bad}")
+    check_curve([(r["ebn0_db"], r["fer"]) for r in rows], n, "turbo FER")
+    check_curve([(r["ebn0_db"], r["ber"]) for r in rows], n, "turbo BER")
+    check_curve([(r["ebn0_db"], r["bler"]) for r in bler["ldpc"]], n, "LDPC BLER")
+    for mod, _, _ in bler_sweep.PDSCH_CASES:
+        check_curve([(r["snr_db"], r["bler"]) for r in bler["pdsch"] if r["mod"] == mod], n,
+                    f"PDSCH {mod} BLER")
+
+    tbs = bler_sweep.LDPC[0]
+    ldpc_s = sum(v for k, v in seconds.items() if k.startswith("ldpc/"))
+    log(f"[{card}] turbo BER sweep (K={SWEEP_K}, {n} frames, {SWEEP_ITERS} iterations): "
+        f"{json.dumps(rows)}")
+    log(f"[{card}] LDPC sweep (TBS {tbs}, {n} blocks): {json.dumps(bler['ldpc'])}; "
+        f"ldpc chain: {n * tbs * len(bler['ldpc']) / ldpc_s / 1e6:.1f} Mb/s info (all points)")
+    log(f"[{card}] PDSCH sweep ({bler_sweep.CELL['nof_prb']} PRB, {n} TBs): "
+        f"{json.dumps(bler['pdsch'])}")
+    log(f"[{card}] sweep seconds a point: {json.dumps(seconds)}")
+    log(f"[{card}] PDSCH Mb/s a point: " + json.dumps(
+        {f"pdsch/{r['mod']}/snr={r['snr_db']:.1f}": n * r["tbs"] / seconds[
+            f"pdsch/{r['mod']}/snr={r['snr_db']:.1f}"] / 1e6 for r in bler["pdsch"]}))
+    log(f"[{card}] held against map_fused16's plain version: BER {json.dumps(ber_cmp)}; "
+        f"PDSCH {json.dumps(pdsch_cmp)}; peak memory {peak:.2f} GiB")
+    log(f"[{card}] sweep launches: BER {ber_launches['map_fused16']}, PDSCH {pdsch_launches}")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, k, l, t = n, SWEEP_K, ber_sweep.WINDOW, ber_sweep.TRAIN
+    r = check_kernel("map_fused16", gamma_inputs(dev, gen, b, k, l, t), time_it=True)
+    nbytes, adds, maxes = work("map_fused16", b, k, l, t)
+    bound_ms, bound_by = bound(nbytes, adds, maxes, "bf16")
+    log(f"[{card}] map_fused16 at the BER sweep's shape B={b} K={k} L={l} T={t} "
+        f"(N={b * k // l}): {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}, "
+        f"{nbytes} bytes); plain {r['plain_ms']:.2f} ms; max|diff| {r['max_abs_err']}")
+    return dict(map_fused16=dict(
+        launches=ber_launches["map_fused16"] + pdsch_launches["map_fused16"],
+        launches_ber=ber_launches["map_fused16"], launches_pdsch=pdsch_launches["map_fused16"],
+        shapes=dict(blocks=b, K=k, L=l, T=t, lanes=b * (k // l)), max_abs_err=r["max_abs_err"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+        compared=dict(ber=ber_cmp, pdsch=pdsch_cmp)),
+        peak_gib=peak, seconds=seconds)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -3658,6 +3828,7 @@ def main() -> None:
     log(f"[{card}] nbiot path: " + json.dumps(phase(nbiot_path, dev, card)))
     log(f"[{card}] nr sib path: " + json.dumps(phase(nr_sib_path, dev, card)))
     multi = phase(multichip_path, dev, card, main_decode_s)
+    sweep = phase(sweep_path, dev, card)
     fused16_paths = {}
     for key, (entry, cbs, k_cb, l_win) in new_paths.items():
         nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)
@@ -3705,6 +3876,7 @@ def main() -> None:
             **({"sidelink_path": sidelink["entries"][wrapper]}
                if route in ("map_fused16", "turbo_map") else {}),
             **({"multichip_path": multi["map_fused16"]} if route == "map_fused16" else {}),
+            **({"sweep_path": sweep["map_fused16"]} if route == "map_fused16" else {}),
             **path_device_ms.get(path, {})))
     log(f"[{card}] phase seconds: {json.dumps(phase_s)}; the whole script "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -57,6 +57,17 @@ def _crc_matrix_t(n_bits: int, poly_key: str, device: torch.device) -> torch.Ten
                            device=device)
 
 
+def crc_np(bits: np.ndarray, poly_key: str) -> np.ndarray:
+    """Host CRC of MSB-first bit array (..., N) → (..., order) parity bits."""
+    g = crc_matrix(bits.shape[-1], poly_key).astype(np.int64)
+    return (bits.astype(np.int64) @ g) % 2
+
+
+def crc_attach_np(bits: np.ndarray, poly_key: str) -> np.ndarray:
+    """bits (..., N) with their CRC appended, (..., N + order), in bits' dtype."""
+    return np.concatenate([bits, crc_np(bits, poly_key).astype(bits.dtype)], axis=-1)
+
+
 def _remainder(bits: torch.Tensor, poly_key: str) -> torch.Tensor:
     g = _crc_matrix_t(bits.shape[-1], poly_key, bits.device)
     acc = torch.matmul(bits.to(torch.float32), g)

@@ -27,6 +27,7 @@ RRC-configured per UE (here: allocated at attach).
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -58,6 +59,14 @@ from srsran_4g_tpu_torch.utils import constants as C
 
 DL_SF = 4   # default DL subframe index for single-subframe harnesses
 UL_SF = 3   # default UL subframe index for single-subframe harnesses
+
+
+@dataclass(frozen=True)
+class UePucchRes:
+    """RRC-configured PUCCH resources of one UE."""
+
+    n_pucch_sr: int
+    n_pucch_2: int     # CQI (format 2) resource index
 
 
 class CchAllocator:

@@ -4,7 +4,9 @@ arithmetic), map_fused at radix 2 and 4 equal to its plain version,
 map_windowed and map_v3 equal to their plain version and to each other, the
 bf16 kernels (map_fused16, map_windowed16) equal to their plain versions,
 turbo_decode at windows of 512 and 6144 under TURBO_KERNEL v9, bf16, v7 and
-v8 equal to the CPU decode, every probe kernel
+v8 equal to the CPU decode, map_fused16 in the turbo BER sweep's waterfall
+(tools/ber_sweep at K = 6144, 0.5 dB) equal to its plain version, every probe
+kernel
 (ops/cuda/probes.py) against its plain version (f32 atol 1e-3, bf16 equal),
 and the PDSCH, TM4 2x2, DL-from-samples, control-channel, PUSCH (with UCI)
 and PMCH receivers, the NR PDSCH and the DCI polar decoder and the PRACH
@@ -41,7 +43,7 @@ from srsran_4g_tpu_torch.models import (chest, dci_nr, enb_dl, grid, grid_nr, pb
                                         prach, pusch, uci, ue_dl)
 from srsran_4g_tpu_torch.ops import polar_3gpp, turbo
 from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
-from srsran_4g_tpu_torch.tools import multichip, run_lte, run_nr, three_process
+from srsran_4g_tpu_torch.tools import ber_sweep, multichip, run_lte, run_nr, three_process
 
 torch.set_num_threads(2)
 
@@ -185,6 +187,24 @@ def test_turbo_decode_wide_windows_match_cpu(cuda_device, window, kernel, monkey
     h_c, a_c = turbo.turbo_decode(torch.as_tensor(llr), n_iter=2, window=window)
     np.testing.assert_array_equal(a_g.cpu().numpy(), a_c.numpy())
     np.testing.assert_array_equal(h_g.cpu().numpy(), bits)
+
+
+def test_ber_sweep_waterfall_kernel_matches_plain(cuda_device, monkeypatch):
+    """tools/ber_sweep at K = 6144, 64 frames, 0.5 dB (in the waterfall,
+    every half-iteration run): map_fused16 launched 2 x iters times, and the
+    hard bits and APP LLRs identical to the same decode on the card with
+    map_fused16_ref in its place."""
+    monkeypatch.delenv("TURBO_KERNEL", raising=False)
+    seen = []
+    turbo_map.launches.clear()
+    (row,) = ber_sweep.sweep(6144, 64, 5, [0.5], cuda_device,
+                             on_point=lambda r, dt, llr, hard, app: seen.append((llr, hard, app)))
+    assert dict(turbo_map.launches) == {"map_fused16": 10}
+    assert 0 < row["fer"] < 1, row
+    ((llr, hard, app),) = seen
+    monkeypatch.setattr(turbo_map, "map_fused16", turbo_map.map_fused16_ref)
+    h_p, a_p = ber_sweep.decode_point(llr, 5)
+    assert torch.equal(h_p, hard) and torch.equal(a_p, app)
 
 
 def test_dl_from_samples_on_card_matches_cpu(cuda_device):

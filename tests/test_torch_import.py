@@ -26,7 +26,7 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "models.pusch_nr", "tools.run_nr", "models.ra_sl", "models.sidelink",
             "models.sl_rx", "models.nbiot", "models.nbiot_data", "models.csi_nr",
             "models.coreset0", "parallel.mesh", "parallel.dist", "parallel.stream",
-            "parallel.pipeline", "tools.multichip",
+            "parallel.pipeline", "tools.multichip", "tools.ber_sweep", "tools.bler_sweep",
             *(f"utils.{m}" for m in ("io", "log", "metrics", "sys_metrics", "checkpoint",
                                      "crash_handler")),
             *(f"stack.{m}" for m in (
