@@ -152,7 +152,16 @@ read just after:
   each PDSCH case's lowest point with BLER < 1) the decode again with
   ``map_fused16``'s plain version, bits, flags and APP LLRs identical; no
   errors at the clean points, every curve non-increasing within three
-  binomial standard errors; ``map_fused16`` timed at the sweep's shape.
+  binomial standard errors; ``map_fused16`` timed at the sweep's shape;
+- the measuring tools (``tools.profile_components``, ``turbo_kernel_bench``,
+  ``trace_bench``, ``dp_evidence``, ``scaling_bench``, the counterparts of
+  the JAX package's tools of those names), each ``main`` once into a
+  temporary directory: the stage times of 32 subframes (the staged bits
+  equal to the decode's, seven lines), the half-iteration with and without
+  its preparation under v9 and v4 (the kernel alone exact, its bound 0.0427
+  ms) and the full decode (8 launches), one decode profiled into a Chrome
+  trace, batch saturation at 16 and 128 with two programs alternating, and
+  weak scaling at dp 1 and 2 over Gloo (BLER 0).
   Each phase's seconds and the whole script's are logged.
 
 ``map_fused16`` (the default route's kernel), ``map_windowed``,
@@ -177,6 +186,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib.metadata
+import io
 import json
 import math
 import os
@@ -188,27 +198,16 @@ import time
 import numpy as np
 import torch
 
-# The rates the bounds below are computed against.  Bytes: the H100 SXM's
-# HBM3 bandwidth (NVIDIA data sheet).  Operations: the CUDA cores, at 132 SMs
-# and the 1.98 GHz boost clock.  Per SM and clock, for compute capability
-# 9.0 (CUDA C++ Programming Guide, "Arithmetic Instructions", throughput
-# table): 128 results of 32-bit float add/multiply (one f32 add or subtract
-# an instruction), 256 of 16-bit float add/multiply (128 packed bf16x2
-# instructions; a scalar bf16 add takes one instruction too), and 64 of
-# compare/minimum/maximum (the guide has no packed 16-bit row: a bf16x2 max
-# is taken as one such instruction giving two elements).  Each of the SM's
-# four partitions dispatches one warp instruction a clock (NVIDIA H100
-# Tensor Core GPU Architecture whitepaper), 128 thread instructions per SM
-# and clock of any kind.  So n_add add and n_max max instructions take at
-# least max(n_add / 128, n_max / 64, (n_add + n_max) / 128) SM clocks; in
-# every kernel here n_add >= n_max, so dispatch binds, whatever pipe the
-# maxes use.  The data sheet's 67 TFLOP/s f32 counts an FMA as two
-# operations and its 989 TFLOP/s bf16 is the tensor cores', which no
-# elementwise max can use.
-PEAK_BYTES_PER_S = 3.35e12
-SM_COUNT, CLOCK_HZ = 132, 1.98e9
-ADD_PER_SM_CLOCK, MAX_PER_SM_CLOCK, DISPATCH_PER_SM_CLOCK = 128, 64, 128
-ELEMENTS_PER_INSTR = {"f32": 1, "bf16": 1, "bf16x2": 2}
+from srsran_4g_tpu_torch.tools import clock_ms, dp_evidence, profile_components, trace_bench
+from srsran_4g_tpu_torch.tools.turbo_kernel_bench import (
+    ADD_PER_SM_CLOCK, BF16_WRAPPERS, CLOCK_HZ, DISPATCH_PER_SM_CLOCK, EXACT,
+    MAX_PER_SM_CLOCK, PATH_KERNELS, PATH_OF, ROUTES, SM_COUNT, bound, gamma_inputs,
+    kernel_calls, op_ms, work)
+
+# The bounds' rates (the H100 SXM's HBM3 bandwidth, the CUDA cores' add, max
+# and dispatch rates at 132 SMs and 1.98 GHz), ``work``, the route table
+# ROUTES / EXACT and the kernels of each TURBO_KERNEL path (PATH_KERNELS,
+# PATH_OF) live in tools/turbo_kernel_bench.py.
 ATOL = 1e-3  # f32 kernel vs plain version: same arithmetic in the same order
 # bf16 kernels vs plain version: the repo's 16-bit bars (hard bits identical,
 # atol 2.5, mean |diff| < 0.5); the same bf16 ops in the same order, so 0 is
@@ -226,14 +225,8 @@ MIMO_BATCH = 64
 MIMO_PMI = 2
 # the fixed 2x2 channel of the JAX package's MIMO gate (tools/tpu_smoke.py)
 MIMO_H = ((1.0 + 0.1j, 0.3 - 0.4j), (0.2 + 0.4j, -0.9 + 0.2j))
-# TURBO_KERNEL -> the wrappers whose kernels that path launches
-PATH_KERNELS = {"v9": ("map_fused16",), "bf16": ("map_windowed16",),
-                "v3": ("map_v3",), "v4": ("map_windowed",),
-                "v7": ("map_fused",), "v8": ("map_fused",),
-                "v5": ("sweep", "emit"), "v6": ("sweep", "emit")}
 WRAPPERS = ("map_windowed", "map_windowed16", "map_v3", "map_fused",
             "map_fused16", "sweep", "emit")
-BF16_WRAPPERS = ("map_windowed16", "map_fused16")
 # the downlink from samples: 100 PRB, subframe 5 (PSS/SSS present), a cell id
 # that is not a multiple of 3; captures of a random lead of 0..DL_LEAD_MAX
 # samples, the subframe, and a tail of at least DL_TAIL; CFO uniform in
@@ -259,23 +252,6 @@ C_RNTI, SI_RNTI, UNSENT_RNTI = 0x003D, 0xFFFF, 0x1234
 C_DCI_AT, SI_DCI_AT = (2, 8), (4, 0)
 GRANT_MCS, GRANT_TBS = 28, 75376
 PHICH_AT = ((3, 1), (7, 5))  # (group, nseq)
-# kernel route -> (its wrapper and radix, its source under csrc/, the line of
-# the TPU kernel it replaces in srsran_4g_tpu/ops/pallas/turbo_map.py, and the
-# TURBO_KERNEL path whose decode gives its launches)
-ROUTES = {
-    "turbo_map": ("map_windowed", None, "turbo_windowed.cu", 272, "v4"),
-    "map_windowed16": ("map_windowed16", None, "turbo_windowed.cu", 1323, "bf16"),
-    "map_v3": ("map_v3", None, "turbo_windowed.cu", 1189, "v3"),
-    "map_fused16": ("map_fused16", None, "turbo_fused16.cu", 942, "v9"),
-    "map_fused_r2": ("map_fused", 2, "turbo_fused.cu", 872, "v7"),
-    "map_fused_r4": ("map_fused", 4, "turbo_fused.cu", 872, "v8"),
-    "sweep_r2": ("sweep", 2, "turbo_sweep.cu", 1022, "v6"),
-    "sweep_r4": ("sweep", 4, "turbo_sweep.cu", 426, "v5"),
-    "emit": ("emit", None, "turbo_emit.cu", 1150, "v5"),
-}
-# routes held to max |diff| 0: every route but sweep and emit
-EXACT = ("turbo_map", "map_windowed16", "map_v3", "map_fused16", "map_fused_r2",
-         "map_fused_r4")
 # the default route at L ≡ 2 (mod 4): 100 PRB, MCS 23 (I_TBS 21, 64QAM), TBS
 # 51024, 9 code blocks of K = 5696, window L = 178
 MCS23_TBS, MCS23_K, MCS23_L = 51024, 5696, 178
@@ -436,6 +412,15 @@ SWEEP_FRAMES = 1024
 SWEEP_K, SWEEP_ITERS = 6144, 5
 SWEEP_EBN0 = (0.0, 3.0, 0.25)  # the BER tool's default grid: min, max, step
 SWEEP_TURBO_CLEAN, SWEEP_LDPC_CLEAN = 1.5, 2.0
+# The measuring tools (tools/{profile_components,turbo_kernel_bench,
+# trace_bench,dp_evidence,scaling_bench}), each main once at a reduced depth:
+# the decode of 32 subframes profiled once, dp_evidence at two batches and 3
+# reps, scaling_bench at dp 1 and 2 over Gloo (two ranks on one card).
+TOOLS_ENV = {"profile_components": {"BENCH_BATCH": "32"},
+             "dp_evidence": {"DP_BATCHES": "16,128", "BENCH_REPS": "3", "BENCH_BATCH": "128"}}
+TOOLS_HALF_KERNELS = ("v9", "v4")
+TOOLS_BENCH_BOUND_MS = 0.0427  # either route's kernel at the bench shape (PERF.md)
+TOOLS_SCALING_ARGS = ["--dps", "1,2", "--backend", "gloo", "--iters", "3"]
 
 
 def log(msg: str) -> None:
@@ -456,84 +441,12 @@ def pkg_version(name: str) -> str:
         return "not installed"
 
 
-def op_ms(adds: int, maxes: int, kind: str) -> float:
-    """Least time (ms) the CUDA cores take for ``adds`` adds and subtracts
-    and ``maxes`` maxes of type ``kind`` ("f32", "bf16" or "bf16x2",
-    counted in elements): the rates above."""
-    per = ELEMENTS_PER_INSTR[kind]
-    i_add, i_max = adds / per, maxes / per
-    clocks = max(i_add / ADD_PER_SM_CLOCK, i_max / MAX_PER_SM_CLOCK,
-                 (i_add + i_max) / DISPATCH_PER_SM_CLOCK) / SM_COUNT
-    return clocks / CLOCK_HZ * 1e3
-
-
-def bound(nbytes: int, adds: int, maxes: int, kind: str) -> tuple[float, str]:
-    """Least time (ms) for work that moves ``nbytes`` and does ``adds`` adds
-    and ``maxes`` maxes of type ``kind``, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, op_ms(adds, maxes, kind)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def work(wrapper: str, b: int, k: int, l: int, t: int) -> tuple[int, int, int]:
-    """Bytes (each input read once, each output written once), adds
-    (subtracts included) and maxes of one call of ``wrapper`` at these
-    shapes.  The half-iteration (map_windowed, map_windowed16, map_v3,
-    map_fused, map_fused16) reads the float32 gammas and initial metrics
-    and writes L float32 LLRs per lane; sweep writes the L/2 even-position
-    stores of both chains instead, and emit reads those stores and the body
-    gammas.  Operations (bf16 for the 16-bit kernels, else f32), counting
-    only lanes whose training is not frozen: per trellis step per chain 24
-    adds (16 branch adds, 8 normalising subtracts) and 15 maxes (8 + 7);
-    per LLR 26 adds (16 alpha + beta, 8 parity terms, the input term and
-    the difference) and 14 maxes; for emit's two odd-position steps per
-    pair 32 adds and 16 maxes."""
-    w = k // l
-    n = w * b
-    gammas, inits, llrs = 2 * (l + 2 * t) * n, 2 * 8 * n, l * n
-    stores = 2 * (l // 2) * 8 * n
-    steps = (n - b) * t + (w - 1) * b * t + 2 * n * (l - 1)
-    if wrapper == "sweep":
-        return 4 * (gammas + inits + stores), 24 * steps, 15 * steps
-    if wrapper == "emit":
-        pairs = (l // 2) * n
-        return (4 * (2 * l * n + stores + llrs), (26 * 2 + 32) * pairs,
-                (14 * 2 + 16) * pairs)
-    return 4 * (gammas + inits + llrs), 24 * steps + 26 * llrs, 15 * steps + 14 * llrs
-
-
-def gamma_inputs(dev, gen, b, k, l, t):
-    """Random half-iteration inputs laid out as the decoder lays them out."""
-    from srsran_4g_tpu_torch.ops import turbo
-
-    lsa = torch.randn((b, k), generator=gen, device=dev) * 3
-    lp = torch.randn((b, k), generator=gen, device=dev) * 3
-    ts = torch.randn((b, 3), generator=gen, device=dev)
-    tp = torch.randn((b, 3), generator=gen, device=dev)
-    gs, gp, a0, b0, w = turbo._windowed_inputs(lsa, lp, ts, tp, l, t)
-    return gs, gp, a0, b0, t, l, b, w
-
-
-def kernel_calls(args, route: str):
-    """(kernel call, plain call) of one route on half-iteration inputs; emit
-    takes the body gammas and the radix-4 sweep kernel's stores."""
-    from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
-
-    wrapper, radix = ROUTES[route][:2]
-    fn, ref = getattr(tm, wrapper), getattr(tm, wrapper + "_ref")
-    if wrapper == "emit":
-        gs, gp, _, _, t, l, b, w = args
-        args = (gs[t:t + l].view(l // 2, 2, b * w), gp[t:t + l].view(l // 2, 2, b * w),
-                *tm.sweep(*args, radix=4))
-    kw = {} if radix is None else {"radix": radix}
-    return lambda: fn(*args, **kw), lambda: ref(*args, **kw)
-
-
 def check_kernel(route: str, args, time_it=False) -> dict:
     """One route's kernel vs its plain version on the card, same inputs: f32
     kernels to atol 1e-3, bf16 kernels to the 16-bit bars, and the routes of
     EXACT to max |diff| 0; map_v3 also equal to turbo_map's LLRs."""
     from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
-    from srsran_4g_tpu_torch.tools import event_ms, host_ms
+    from srsran_4g_tpu_torch.tools import event_ms
 
     gs, _, _, _, t, l, b, w = args
     kernel, plain = kernel_calls(args, route)
@@ -562,7 +475,7 @@ def check_kernel(route: str, args, time_it=False) -> dict:
                                  f"{res['vs_turbo_map']}, not 0")
     if time_it:
         res["ms"] = event_ms(kernel, iters=20, warmup=2)
-        res["plain_ms"] = host_ms(plain, iters=2)
+        res["plain_ms"] = sum(clock_ms(plain, 2).ms) / 2
     log(f"check {route} {desc}: max|diff| {err:.3g}"
         + (f" (vs turbo_map {res['vs_turbo_map']:.3g})" if "vs_turbo_map" in res else "")
         + (f", kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms" if time_it else ""))
@@ -643,104 +556,34 @@ def reset_counts() -> None:
     tm.largest.clear()
 
 
-def timed_decodes(cfg, rx, reps: int, decode=None):
-    """Decode `reps` times; host-clock seconds of each (ends in a sync), the
-    turbo kernel launches of the last decode (all wrappers), and its
-    output."""
-    from srsran_4g_tpu_torch.models import pdsch
-
-    decode = decode or pdsch.decode
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        before = sum(launch_counts().values())
-        t0 = time.perf_counter()
-        out = decode(cfg, rx, n_iter=N_ITER)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return times, sum(launch_counts().values()) - before, out
-
-
 def sweeps(cfg, tx, rx, bits, gen, card) -> None:
     """Batch size and SNR against decode time (reported, not asserted on,
-    except that every batch of the 30 dB sweep must decode exactly)."""
+    except that every batch of the 30 dB sweep must decode exactly): the
+    batches through ``tools.dp_evidence.time_batch``, the SNRs through
+    ``tools.clock_ms``."""
     from srsran_4g_tpu_torch.channel import awgn
+    from srsran_4g_tpu_torch.models import pdsch
 
     for b in SWEEP_BATCHES:
         tile = -(-b // BATCH)
-        times, launches, out = timed_decodes(cfg, rx.repeat(tile, 1, 1)[:b], 3)
-        if not (bool(out["crc_ok"].all())
-                and torch.equal(out["bits"], bits.repeat(tile, 1)[:b])):
+        r = dp_evidence.time_batch(cfg, rx.repeat(tile, 1, 1)[:b], bits.repeat(tile, 1)[:b],
+                                   3, N_ITER)
+        if not r["exact"]:
             raise AssertionError(f"batch {b}: decode is not exact")
-        log(f"[{card}] batch sweep {SNR_DB} dB: batch {b}: best {min(times) * 1e3:.2f} ms "
-            f"= {b / min(times):.1f} subframes/s, turbo launches {launches}")
+        best = min(r["host_ms"])
+        log(f"[{card}] batch sweep {SNR_DB} dB: batch {b}: best {best:.2f} ms "
+            f"= {b / best * 1e3:.1f} subframes/s, turbo launches "
+            f"{sum(r['launches'].values())}; device busy {r['device_busy_ms']:.3f} ms "
+            f"(torch.profiler, the median of 3 more decodes)")
     for snr in SWEEP_SNR_DB:
         rx_s = awgn.awgn(tx, awgn.snr_to_noise_var(snr), generator=gen)
-        times, launches, out = timed_decodes(cfg, rx_s, 3)
+        times, launches, out = clock_ms(lambda: pdsch.decode(cfg, rx_s, n_iter=N_ITER), 3)
         n_ok = int(out["crc_ok"].sum())
         n_exact = int((out["bits"] == bits).all(dim=1).sum())
-        log(f"[{card}] SNR sweep batch {BATCH}: {snr} dB: best {min(times) * 1e3:.2f} ms "
-            f"= {BATCH / min(times):.1f} subframes/s, turbo launches {launches}, "
+        log(f"[{card}] SNR sweep batch {BATCH}: {snr} dB: best {min(times):.2f} ms "
+            f"= {BATCH / min(times) * 1e3:.1f} subframes/s, turbo launches "
+            f"{sum(launches.values())}, "
             f"crc_ok {n_ok}/{BATCH}, exact {n_exact}/{BATCH}")
-
-
-def staged_decode(cfg, rx):
-    """pdsch.decode's stages run one by one, each timed with CUDA events."""
-    from srsran_4g_tpu_torch.models import chest, equalizer, pdsch, sch
-    from srsran_4g_tpu_torch.ops import modem, scrambling
-
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    tab = pdsch._tables(cfg, rx.device)
-    b = rx.shape[0]
-    ev[0].record()
-    est = chest.estimate(chest.ChestConfig(cell=cfg.cell), rx, cfg.subframe)
-    ev[1].record()
-    y = rx.reshape(b, -1)[:, tab["re_idx"]]
-    h = est["h"].reshape(b, -1)[:, tab["re_idx"]]
-    x, eff_nv = equalizer.equalize_single(y, h, est["noise_var"])
-    llr = scrambling.descramble_llrs(
-        modem.demodulate_soft(cfg.mod, x, eff_nv).reshape(b, cfg.g_bits), tab["seq"])
-    ev[2].record()
-    sch.dlsch_decode(cfg.plan, llr, n_iter=N_ITER)
-    ev[3].record()
-    torch.cuda.synchronize()
-    return dict(chest=ev[0].elapsed_time(ev[1]),
-                          equalise_demod_descramble=ev[1].elapsed_time(ev[2]),
-                          dlsch_decode=ev[2].elapsed_time(ev[3]))
-
-
-def profile_decode(cfg, rx, decode_s: float, card: str, reps: int = 3,
-                   decode=None, turbo: str = "fused") -> tuple[float, float] | None:
-    """Device busy/idle share of the decode and its costliest kernels, from
-    torch.profiler over `reps` decodes against the unprofiled best time, and
-    the share of the turbo kernels (named *fused*, as the v9 route's is, or
-    *<turbo>*).  Returns (device ms, turbo kernels' ms) per decode, None if
-    the profiler saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from srsran_4g_tpu_torch.models import pdsch
-
-    decode = decode or pdsch.decode
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            decode(cfg, rx, n_iter=N_ITER)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
-    if busy_ms <= 0:
-        log(f"[{card}] profiler saw no device time: idle share not measured")
-        return None
-    n_kernels = sum(e.count for e in kernels) / reps
-    turbo_ms = sum(e.self_device_time_total for e in kernels if turbo in e.key) / 1e3 / reps
-    log(f"[{card}] decode device time {busy_ms:.3f} ms in {n_kernels:.0f} kernels "
-        f"per decode; idle share {1 - busy_ms / (decode_s * 1e3):.3f} of the "
-        f"unprofiled {decode_s * 1e3:.2f} ms; kernels named *{turbo}* {turbo_ms:.4f} ms "
-        f"({turbo_ms / busy_ms:.3f} of the device time)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms  x{e.count // reps:<4d} "
-            f"{e.key[:90]}")
-    return busy_ms, turbo_ms
 
 
 def check_exact(ok: torch.Tensor, got: torch.Tensor, sent: torch.Tensor, what: str) -> None:
@@ -774,13 +617,15 @@ def time_paths(cfg, rx, bits, card: str) -> dict[str, float]:
     """Best of PATH_REPS decodes under each TURBO_KERNEL, the paths taken in
     turn in every round so that host noise falls on all of them alike.
     Returns each path's best time in seconds."""
+    from srsran_4g_tpu_torch.models import pdsch
+
     times = {kernel: [] for kernel in PATH_KERNELS}
     for _ in range(PATH_REPS):
         for kernel in PATH_KERNELS:
             os.environ["TURBO_KERNEL"] = kernel
-            t, _, out = timed_decodes(cfg, rx, 1)
-            check_exact(out["crc_ok"], out["bits"], bits, f"TURBO_KERNEL={kernel} (timed)")
-            times[kernel] += t
+            t = clock_ms(lambda: pdsch.decode(cfg, rx, n_iter=N_ITER))
+            check_exact(t.out["crc_ok"], t.out["bits"], bits, f"TURBO_KERNEL={kernel} (timed)")
+            times[kernel] += [ms / 1e3 for ms in t.ms]
     for kernel, t in times.items():
         log(f"[{card}] TURBO_KERNEL={kernel}: decode of {BATCH} subframes best of "
             f"{PATH_REPS} {min(t) * 1e3:.2f} ms ({', '.join(f'{x * 1e3:.2f}' for x in t)})"
@@ -813,15 +658,15 @@ def mimo_lane(dev, gen, card: str) -> dict[str, int]:
         check_exact(out[f"crc_ok{q}"], out[f"bits{q}"], tbs[q], f"TM4 codeword {q}")
     if not counts["map_fused16"]:
         raise AssertionError(f"the TM4 lane launched no turbo kernel: {counts}")
-    times, _, out = timed_decodes(mcfg, rx, PATH_REPS, decode=pdsch_mimo.decode)
+    times, _, out = clock_ms(lambda: pdsch_mimo.decode(mcfg, rx, n_iter=N_ITER), PATH_REPS)
     for q in (0, 1):
         check_exact(out[f"crc_ok{q}"], out[f"bits{q}"], tbs[q], f"TM4 codeword {q} (timed)")
     log(f"[{card}] TM4 2x2 pmi {MIMO_PMI}, batch {MIMO_BATCH} x 2 codewords, "
         f"{SNR_DB} dB: crc_ok and bits exact on both, launches {counts}, best of "
-        f"{PATH_REPS} {min(times) * 1e3:.2f} ms "
-        f"({', '.join(f'{t * 1e3:.2f}' for t in times)}) = "
-        f"{MIMO_BATCH / min(times):.1f} subframes/s")
-    profile_decode(mcfg, rx, min(times), card, decode=pdsch_mimo.decode)
+        f"{PATH_REPS} {min(times):.2f} ms ({', '.join(f'{t:.2f}' for t in times)}) = "
+        f"{MIMO_BATCH / min(times) * 1e3:.1f} subframes/s")
+    trace_bench.profile(lambda: pdsch_mimo.decode(mcfg, rx, n_iter=N_ITER), 3,
+                        min(times) / 1e3, card)
     return counts
 
 
@@ -860,7 +705,7 @@ def mcs23_path(dev, gen, card: str, kern: dict) -> dict:
     if moved != {"map_windowed"}:
         raise AssertionError(f"the MCS 23 default route launched {counts}, expected only "
                              f"map_windowed")
-    times, _, out = timed_decodes(cfg, rx, PATH_REPS)
+    times, _, out = clock_ms(lambda: pdsch.decode(cfg, rx, n_iter=N_ITER), PATH_REPS)
     check_exact(out["crc_ok"], out["bits"], bits, "MCS 23 default route (timed)")
     b = BATCH * grp.count
     nbytes, adds, maxes = work("map_windowed", b, MCS23_K, MCS23_L, 32)
@@ -870,19 +715,20 @@ def mcs23_path(dev, gen, card: str, kern: dict) -> dict:
         f"L={l_win} (N={b * (grp.K // l_win)}), batch {BATCH}, {SNR_DB} dB: crc_ok "
         f"{int(out['crc_ok'].sum())}/{BATCH}, bits equal, launches {counts}")
     log(f"[{card}] MCS 23 default route: decode best of {PATH_REPS} "
-        f"{min(times) * 1e3:.2f} ms ({', '.join(f'{t * 1e3:.2f}' for t in times)}) = "
-        f"{BATCH / min(times):.1f} subframes/s; map_windowed {counts['map_windowed']} x "
+        f"{min(times):.2f} ms ({', '.join(f'{t:.2f}' for t in times)}) = "
+        f"{BATCH / min(times) * 1e3:.1f} subframes/s; map_windowed {counts['map_windowed']} x "
         f"{ms:.4f} ms (map_v3 at this shape {kern['mcs23']['map_v3']['ms']:.4f} ms), bound "
         f"{bound_ms:.4f} ms ({bound_by})")
-    prof = profile_decode(cfg, rx, min(times), card, turbo="windowed_kernel")
+    prof = trace_bench.profile(lambda: pdsch.decode(cfg, rx, n_iter=N_ITER), 3,
+                               min(times) / 1e3, card, match="windowed_kernel")
     return dict(path="pdsch.decode, 100 PRB 64QAM MCS 23 (TBS 51024), default TURBO_KERNEL",
                 shapes=dict(blocks=b, K=MCS23_K, L=MCS23_L, T=32,
                             lanes=b * (MCS23_K // MCS23_L)),
                 launches=counts["map_windowed"], ms=ms,
                 plain_ms=kern["mcs23"]["turbo_map"]["plain_ms"], bound_ms=bound_ms,
-                bound_by=bound_by, bytes=nbytes, decode_ms=min(times) * 1e3,
-                decode_device_ms=prof[0] if prof else None,
-                map_windowed_device_ms=prof[1] if prof else None)
+                bound_by=bound_by, bytes=nbytes, decode_ms=min(times),
+                decode_device_ms=prof["device_ms"] if prof else None,
+                map_windowed_device_ms=prof["match_ms"] if prof else None)
 
 
 def impair(dev, gen, sf: torch.Tensor, cfo_max: float, symbol_sz: int):
@@ -923,14 +769,7 @@ def dl_captures(dev, gen, cfg, cfo_max: float):
 def profile_search(search, card: str, reps: int = 3) -> None:
     """Device time of the cell search split into the FFTs (cuFFT kernels)
     and the rest, from torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            search()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = trace_bench.kernel_events(search, reps)
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     if total <= 0:
         log(f"[{card}] profiler saw no device time: cell search split not measured")
@@ -1026,7 +865,6 @@ def probes_phase(card: str) -> list[dict]:
     its plain version on the same inputs (f32 atol 1e-3, bf16 the 16-bit
     bars).  Returns the probes' entries of the kernels line."""
     from srsran_4g_tpu_torch.ops.cuda import probes
-    from srsran_4g_tpu_torch.tools import host_ms
     from srsran_4g_tpu_torch.tools import turbo_probe2 as p2
     from srsran_4g_tpu_torch.tools import turbo_probe3 as p3
     from srsran_4g_tpu_torch.tools import turbo_probe6 as p6
@@ -1077,8 +915,7 @@ def probes_phase(card: str) -> list[dict]:
         elif err > ATOL:
             raise AssertionError(f"{name} kernel vs plain: max |diff| {err} > {ATOL}")
         log(f"check {name}: max |diff| {err:.3g}, plain mean |value| {size:.4g}")
-        plain_ms = host_ms(plain)
-        return err, plain_ms
+        return err, clock_ms(plain).ms[0]
 
     res = {}
     g, a0 = p2.inputs()
@@ -1090,8 +927,8 @@ def probes_phase(card: str) -> list[dict]:
     err3 = max(check("probe3_empty", lambda: p3.empty(ins, threads=t, scratch=sc),
                      lambda: probes.probe_empty_ref(ins, 112))[0]
                for t in p3.THREADS for sc in (False, True))
-    res["probe3_empty"] = dict(ms=r3["empty threads=1024"], n=p3.N,
-                               checks=(err3, host_ms(lambda: probes.probe_empty_ref(ins, 112))))
+    plain3_ms = clock_ms(lambda: probes.probe_empty_ref(ins, 112)).ms[0]
+    res["probe3_empty"] = dict(ms=r3["empty threads=1024"], n=p3.N, checks=(err3, plain3_ms))
     x = p6.inputs()
     # random start metrics: from p6.inputs' zeros the skeleton's output is 0
     rng = np.random.default_rng(SEED)
@@ -1188,15 +1025,7 @@ def profile_window(fn, card: str, what: str, host_s: float, reps: int = 3,
     time.  ``cpu_ops=False`` records the kernels alone: the host ops' events
     of a call of tens of thousands of kernels take the profiler seconds to
     aggregate."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops else [])
-    with profile(activities=activities) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = trace_bench.kernel_events(fn, reps, cpu_ops=cpu_ops)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     if busy_ms <= 0:
         log(f"[{card}] profiler saw no device time: {what} idle share not measured")
@@ -1649,15 +1478,15 @@ def mbsfn_path(dev, gen, card: str) -> dict:
     log(f"MBSFN path: PMCH 100 PRB area 1 subframe 1 64QAM TBS {cfg.tbs} (code rate "
         f"{cfg.tbs / cfg.g_bits:.3f}, {grp.count} CBs of K={grp.K}, L={l_win}), batch {BATCH}, "
         f"{SNR_DB} dB: crc_ok {int(out['crc_ok'].sum())}/{BATCH}, bits equal; launches {counts}")
-    times, _, out = timed_decodes(cfg, rx, PATH_REPS, decode=pmch.decode)
+    times, _, out = clock_ms(lambda: pmch.decode(cfg, rx, n_iter=N_ITER), PATH_REPS)
     check_exact(out["crc_ok"], out["bits"], bits, "PMCH (timed)")
     log(f"[{card}] PMCH decode of {BATCH} subframes: best of {PATH_REPS} "
-        f"{min(times) * 1e3:.2f} ms ({', '.join(f'{t * 1e3:.2f}' for t in times)}) = "
-        f"{BATCH / min(times):.1f} subframes/s")
+        f"{min(times):.2f} ms ({', '.join(f'{t:.2f}' for t in times)}) = "
+        f"{BATCH / min(times) * 1e3:.1f} subframes/s")
     profile_window(lambda: pmch.decode(cfg, rx, n_iter=N_ITER), card,
-                   f"PMCH decode of {BATCH}", min(times))
+                   f"PMCH decode of {BATCH}", min(times) / 1e3)
     return dict(path="pmch.decode, 100 PRB 64QAM TBS 46888, default TURBO_KERNEL",
-                launches=counts["map_fused16"], decode_ms=min(times) * 1e3)
+                launches=counts["map_fused16"], decode_ms=min(times))
 
 
 def sync_stream(dev, gen, n_sf: int, lead: int, cfo: float, nbr_shift: int,
@@ -3691,6 +3520,87 @@ def sweep_path(dev, card: str) -> dict:
         peak_gib=peak, seconds=seconds)
 
 
+@contextlib.contextmanager
+def environ(**values):
+    """The environment variables ``values`` set while inside, then restored."""
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def tools_path(dev, card: str) -> dict:
+    """Each measuring tool's ``main`` once on the card, writing into a
+    temporary directory: ``profile_components`` at batch 32 (the staged
+    bits equal to ``pdsch.decode``'s, all seven lines parse);
+    ``turbo_kernel_bench`` ``half`` under TOOLS_HALF_KERNELS (the kernel
+    alone max |diff| 0 against its plain version, the bound 0.0427 ms at the
+    bench shape) and ``full`` under v9 (every launch counted: 2 x 4
+    ``map_fused16``); ``trace_bench`` with one decode (the trace written and
+    not empty); ``dp_evidence`` at batches 16 and 128, 3 reps (crc_all_ok
+    each); ``scaling_bench`` at dp 1 and 2 over Gloo (BLER 0).  Returns the
+    tools' numbers."""
+    from srsran_4g_tpu_torch.tools import scaling_bench, turbo_kernel_bench
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with environ(**TOOLS_ENV["profile_components"]), contextlib.redirect_stdout(buf):
+            pc = profile_components.main(["--out", os.path.join(tmp, "pc.json")])
+        log(buf.getvalue().rstrip())
+        lines = profile_components.parse(buf.getvalue())
+        if tuple(lines) != profile_components.NAMES or (dev.type == "cuda" and any(
+                v["device_busy_ms"] is None for v in lines.values())):
+            raise AssertionError(f"profile_components printed {list(lines)}")
+        out["profile_components"] = dict(batch=pc["batch"], lines=lines,
+                                         stage_span_ms=pc["stage_span_ms"])
+
+        for kernel in TOOLS_HALF_KERNELS:
+            with environ(TURBO_KERNEL=kernel):
+                h = turbo_kernel_bench.main(["half"])["half"]
+            if h["max_abs_err"] != 0 or round(h["bound_ms"], 4) != TOOLS_BENCH_BOUND_MS:
+                raise AssertionError(f"turbo_kernel_bench half under {kernel}: max |diff| "
+                                     f"{h['max_abs_err']}, bound {h['bound_ms']} ms")
+            out[f"turbo_kernel_bench half {kernel}"] = {
+                key: v for key, v in h.items() if key != "llr"}
+        with environ(TURBO_KERNEL="v9"):
+            f = turbo_kernel_bench.main(["full"])["full"]
+        want = {"map_fused16": 2 * turbo_kernel_bench.ITERS_FULL}
+        if f["launches"] != want:
+            raise AssertionError(f"turbo_kernel_bench full: launches {f['launches']}, "
+                                 f"not {want}")
+        out["turbo_kernel_bench full"] = {key: v for key, v in f.items() if key != "hard"}
+
+        tr = trace_bench.main(["--reps", "1", "--out", os.path.join(tmp, "trace")])
+        size = os.path.getsize(tr["trace"]) if os.path.exists(tr["trace"]) else 0
+        if not size:
+            raise AssertionError(f"trace_bench wrote no trace at {tr['trace']}")
+        out["trace_bench"] = dict(tr, trace_bytes=size, trace=os.path.basename(tr["trace"]))
+
+        with environ(**TOOLS_ENV["dp_evidence"]):
+            dp = dp_evidence.main(["--out", os.path.join(tmp, "dp_evidence.json")])
+        if not all(r["crc_all_ok"] for r in dp["batch_sweep"]):
+            raise AssertionError(f"dp_evidence: a batch failed a CRC: {dp['batch_sweep']}")
+        out["dp_evidence"] = dp
+
+        sc = scaling_bench.main([*TOOLS_SCALING_ARGS,
+                                 "--out", os.path.join(tmp, "scaling.json")])
+        if [r["bler"] for r in sc["rows"]] != [0.0, 0.0]:
+            raise AssertionError(f"scaling_bench: {sc['rows']}")
+        out["scaling_bench"] = sc
+        written = sorted(os.listdir(tmp))
+    if written != ["dp_evidence.json", "pc.json", "scaling.json", "trace"]:
+        raise AssertionError(f"the tools wrote {written}")
+    log(f"[{card}] tools path: " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -3754,7 +3664,7 @@ def main() -> None:
         log(f"{route} at the bench shape: {geo}")
     usage = {route: build.kernel_usage(libs[source[:-3]].with_suffix(".log").read_text(),
                                        *kernel_symbol(route, radix, geos.get(route)))
-             for route, (_, radix, source, _, _) in ROUTES.items()}
+             for route, (_, radix, source, _) in ROUTES.items()}
     for route, u in usage.items():
         log(f"{route} kernel at the bench shape: {u}")
     kern = check_kernels(dev, gen, BATCH * grp.count, grp.K)
@@ -3781,19 +3691,20 @@ def main() -> None:
 
     # ---- the default path's timing (the card's name and power limit beside
     # every number) ----------------------------------------------------------
-    times, _, out = timed_decodes(cfg, rx, DECODE_REPS)
+    timed = clock_ms(lambda: pdsch.decode(cfg, rx, n_iter=N_ITER), DECODE_REPS)
+    times, out = [ms / 1e3 for ms in timed.ms], timed.out
     if not bool(out["crc_ok"].all()):
         raise AssertionError("a timed decode failed its CRC")
     best = main_decode_s = min(times)
-    stages = [staged_decode(cfg, rx) for _ in range(3)][-1]
+    stages = [profile_components.stage_times(cfg, rx, N_ITER) for _ in range(3)][-1]
     log(f"[{card}] decode of {BATCH} subframes: best {best * 1e3:.2f} ms of "
         f"{DECODE_REPS} ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms) = "
         f"{BATCH / best:.1f} subframes/s")
-    log(f"[{card}] per-stage (CUDA events, ms): "
+    log(f"[{card}] per-stage (spans between CUDA events, idle gaps included, ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f"; map_fused16 kernel {paths['v9']['map_fused16']} x "
         f"{kern['map_fused16']['ms']:.4f} ms")
-    profile_decode(cfg, rx, best, card)
+    trace_bench.profile(lambda: pdsch.decode(cfg, rx, n_iter=N_ITER), 3, best, card)
     sweeps(cfg, tx, rx, bits, gen, card)
 
     # ---- the other TURBO_KERNEL paths, then the 2x2 lane -------------------
@@ -3805,9 +3716,11 @@ def main() -> None:
     for kernel in ("bf16", "v7", "v8"):  # the redesigned kernels' decodes
         os.environ["TURBO_KERNEL"] = kernel
         log(f"[{card}] TURBO_KERNEL={kernel} decode, profiled:")
-        prof = profile_decode(cfg, rx, best[kernel], card,
-                              turbo="fused_kernel" if kernel != "bf16" else "windowed_kernel")
-        path_device_ms[kernel] = dict(zip(("decode_device_ms", "kernel_device_ms"), prof or ()))
+        prof = trace_bench.profile(
+            lambda: pdsch.decode(cfg, rx, n_iter=N_ITER), 3, best[kernel], card,
+            match="fused_kernel" if kernel != "bf16" else "windowed_kernel")
+        path_device_ms[kernel] = (dict(decode_device_ms=prof["device_ms"],
+                                       kernel_device_ms=prof["match_ms"]) if prof else {})
     os.environ.pop("TURBO_KERNEL", None)
     phase(mimo_lane, dev, gen, card)
     default_route = phase(mcs23_path, dev, gen, card, kern)
@@ -3829,6 +3742,7 @@ def main() -> None:
     log(f"[{card}] nr sib path: " + json.dumps(phase(nr_sib_path, dev, card)))
     multi = phase(multichip_path, dev, card, main_decode_s)
     sweep = phase(sweep_path, dev, card)
+    phase(tools_path, dev, card)
     fused16_paths = {}
     for key, (entry, cbs, k_cb, l_win) in new_paths.items():
         nbytes, adds, maxes = work("map_fused16", BATCH * cbs, k_cb, l_win, 32)
@@ -3845,7 +3759,8 @@ def main() -> None:
 
     b, k, l, t = BATCH * grp.count, grp.K, 208, 32
     kernels = []
-    for route, (wrapper, _, source, line, path) in ROUTES.items():
+    for route, (wrapper, _, source, line) in ROUTES.items():
+        path = PATH_OF[route]
         nbytes, adds, maxes = work(wrapper, b, k, l, t)
         kind = "bf16" if wrapper in BF16_WRAPPERS else "f32"
         bound_ms, bound_by = bound(nbytes, adds, maxes, kind)

@@ -11,11 +11,19 @@ from CUDA events, and returns the numbers) and ``main``:
 
 The inputs default to the CUDA device and raise without one: on CPU tensors
 the kernels' plain versions run, and they time nothing of the card.
+
+Beside them are the port's tools (``run_lte``, ``run_nr``, ``multichip``,
+the error-rate sweeps, the measuring tools ``profile_components``,
+``turbo_kernel_bench``, ``trace_bench``, ``dp_evidence`` and
+``scaling_bench``) and the clocks they share: ``event_ms`` (device time of
+calls queued ahead of the device) and ``clock_ms`` (host time of calls, each
+to a synchronise).
 """
 
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -79,15 +87,38 @@ def event_ms(fn, iters: int = 10, warmup: int = 1, flush: bool = True) -> float:
                        f"to queue {iters} calls")
 
 
-def host_ms(fn, iters: int = 1) -> float:
-    """Mean wall time of ``fn()`` to its end in ms (host clock, the device
-    synchronised after each call): for the kernels' plain versions, chains
-    of many small kernels that the host paces."""
-    total = 0.0
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+class Timed(NamedTuple):
+    """What ``clock_ms`` measured: host ms of each call, the kernel launches
+    of the last (``ops/cuda/turbo_map.launches``, by kernel) and its result."""
+
+    ms: list[float]
+    launches: dict[str, int]
+    out: object
+
+
+def clock_ms(fn, reps: int = 1, warm: bool = False) -> Timed:
+    """``reps`` calls of ``fn()``, after a warm one with ``warm``, each from
+    an idle device to a synchronise, on the host clock.  This is the only
+    clock for a call that the host paces (a decode, a chain of small
+    kernels): CUDA events around such a call read its span, within a few
+    hundredths of a ms of the host's, not the device's busy time, which is
+    ``trace_bench.busy_ms``'s (or ``event_ms``'s, for a call that never
+    waits for the device)."""
+    from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    if warm:
         fn()
-        torch.cuda.synchronize()
-        total += time.perf_counter() - t0
-    return total / iters * 1e3
+    ms, before, out = [], {}, None
+    for _ in range(reps):
+        sync()
+        before = dict(tm.launches)
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: n - before.get(k, 0) for k, n in tm.launches.items() if n != before.get(k, 0)}
+    return Timed(ms, launches, out)

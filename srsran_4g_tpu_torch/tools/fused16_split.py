@@ -1,5 +1,4 @@
-"""``map_fused16`` on the card beside build-time variants of its kernel and,
-with ``--parent DIR``, the kernel it replaced.
+"""``map_fused16`` on the card beside build-time variants of its kernel.
 
 Builds ``csrc/turbo_fused16.cu`` once for each variant of ``VARIANTS``,
 with that variant's ``FUSED16_*`` switches (``nvcc -D``), each launched with
@@ -19,32 +18,23 @@ its own launch geometry (``variant_geometry``):
 - ``tile64``, ``tile128``: 64 or 128 lanes a block (the kernel: 32);
 - ``ring4_full_tile64``: the three together, the design first planned.
 
-``--parent DIR`` names an unpacked tree of commit edc98d6, whose
-``csrc/turbo_fused.cu`` holds the kernel that this one replaced (its stores
-in device memory; the C entry ``turbo_map_fused16`` with 7 pointers and 5
-ints); another tree is refused.  That kernel is timed beside the others,
-and the SISO v9 decode (``decode_in_turn``) runs with either kernel in the
-decoder's place, in turn.
-
 At the 20 MHz bench shape (B = 1,664 blocks of K = 5,824, L = 208, T = 32)
-every variant whose outputs are LLRs, and the parent's kernel, must equal
-the kernel exactly.  Each is timed alone after an L2 flush, all in turn
-(forward, then backward).  Prints each build's registers and spills
-(``ptxas -v``) and the SASS opcode counts (``cuobjdump``) of the kernel and
-of the parent's.
+every variant whose outputs are LLRs must equal the kernel exactly.  Each
+is timed alone after an L2 flush, all in turn (forward, then backward),
+beside the kernel's bound (``tools/turbo_kernel_bench``).  Prints each
+build's registers and spills (``ptxas -v``) and the SASS opcode counts
+(``cuobjdump``) of the kernel.
 
-    python -m srsran_4g_tpu_torch.tools.fused16_split [--parent DIR]
+    python -m srsran_4g_tpu_torch.tools.fused16_split
 """
 
 from __future__ import annotations
 
-import argparse
 import collections
 import ctypes
 import re
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
@@ -54,7 +44,7 @@ from srsran_4g_tpu_torch import resolve_device
 from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import build
 from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
-from srsran_4g_tpu_torch.tools import event_ms
+from srsran_4g_tpu_torch.tools import event_ms, turbo_kernel_bench
 
 B, K, L, T = 1664, 5824, 208, 32
 VARIANT_DIR = build.BUILD_DIR / "fused16_split"
@@ -111,34 +101,6 @@ def _entry(lib: Path, name: str):
     return call
 
 
-def _parent_entry(lib: Path):
-    """The parent's kernel under the wrapper contract of its tree: two
-    (L/4, 8, N) bf16 stores in device memory, allocated on every call."""
-    fn = ctypes.CDLL(str(lib)).turbo_map_fused16
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def call(gs, gp, a0, b0, t, l, nof_b, nof_w):
-        n = gs.shape[1]
-        out = gs.new_empty((l, n))
-        stores = [gs.new_empty((l // 4, 8, n), dtype=torch.bfloat16) for _ in range(2)]
-        err = fn(*(x.data_ptr() for x in (gs, gp, a0, b0, *stores, out)), n, t, l, nof_b,
-                 nof_w, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"the parent's turbo_map_fused16: CUDA error {err}")
-        return out
-
-    return call
-
-
-def parent_source(parent: str) -> Path:
-    src = Path(parent) / "srsran_4g_tpu_torch" / "csrc" / "turbo_fused.cu"
-    if not src.exists() or "fused_kernel<2, __nv_bfloat16, true>" not in src.read_text():
-        raise ValueError(f"--parent {parent}: not a tree of commit edc98d6 (its "
-                         f"turbo_fused.cu holds no bf16 map_fused16 kernel)")
-    return src
-
-
 def inputs(device=None, seed: int = 0):
     """The bench shape's half-iteration inputs from random gammas (N(0, 3²))."""
     dev = resolve_device(device)
@@ -166,56 +128,13 @@ def sass_counts(lib: Path, *patterns: str) -> collections.Counter:
     return counts
 
 
-def decode_in_turn(parent_fn, rounds: int = 4) -> dict[str, list[float]]:
-    """Host ms of the SISO v9 decode at 20 MHz (100 PRB, 64QAM, TBS 75376:
-    13 code blocks of K = 5,824; 128 subframes, AWGN at 30 dB, n_iter 4),
-    with this tree's ``map_fused16`` and ``parent_fn`` in the decoder's place
-    in turn (kernel, parent, parent, kernel, ...), each decode exact."""
-    from srsran_4g_tpu_torch.channel import awgn
-    from srsran_4g_tpu_torch.models import grid, pdsch
-
-    cfg = pdsch.PdschConfig(cell=grid.CellConfig(nof_prb=100, cell_id=123, cfi=1),
-                            rnti=0x1234, subframe=4, mod="64qam", tbs=75376)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    bits = torch.randint(0, 2, (128, cfg.tbs), generator=gen, device="cuda", dtype=torch.int8)
-    rx = awgn.awgn(pdsch.add_crs(cfg, pdsch.encode(cfg, bits)), awgn.snr_to_noise_var(30.0),
-                   generator=gen)
-    calls = collections.Counter()
-
-    def parent(*args):
-        calls["parent"] += 1
-        return parent_fn(*args)
-
-    fns = {"kernel": tm.map_fused16, "parent": parent}
-    ms = {who: [] for who in fns}
-    before = tm.launches["map_fused16"]
-    try:
-        for turn in (("kernel", "parent"), ("parent", "kernel")) * (rounds // 2 + 1):
-            for who in turn:
-                tm.map_fused16 = fns[who]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = pdsch.decode(cfg, rx, n_iter=4)
-                torch.cuda.synchronize()
-                ms[who].append((time.perf_counter() - t0) * 1e3)
-                if not (bool(out["crc_ok"].all()) and torch.equal(out["bits"], bits)):
-                    raise AssertionError(f"SISO v9 decode with the {who}'s map_fused16: not exact")
-    finally:
-        tm.map_fused16 = fns["kernel"]
-    if not (calls["parent"] and tm.launches["map_fused16"] > before):
-        raise AssertionError("the decode did not run through map_fused16 (TURBO_KERNEL=v9)")
-    return {who: t[1:] for who, t in ms.items()}  # the first of each warms up
-
-
-def measure(parent: str | None = None) -> dict:
+def measure() -> dict:
     """Build, check, time and print; returns {"ms": {name: [ms]}, "sass":
-    {name: Counter}} and, with ``parent``, {"decode_ms": {who: [ms]}}."""
+    {name: Counter}, "bound_ms": the kernel's bound at the bench shape}."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     src = build.CSRC / "turbo_fused16.cu"
     procs = {name: _nvcc(src, VARIANT_DIR / f"lib{name}.so", variant_flags(name))
              for name in VARIANTS}
-    if parent:
-        procs["parent"] = _nvcc(parent_source(parent), VARIANT_DIR / "libparent.so")
     kernel_lib = build.build(["turbo_fused16"])["turbo_fused16"]
     logs = {"kernel": kernel_lib.with_suffix(".log").read_text()}
     for name, proc in procs.items():
@@ -230,8 +149,6 @@ def measure(parent: str | None = None) -> dict:
     fns = {"kernel": lambda: tm.map_fused16(*args)}
     for name in VARIANTS:
         fns[name] = (lambda f: lambda: f(*args))(_entry(VARIANT_DIR / f"lib{name}.so", name))
-    if parent:
-        fns["parent"] = (lambda f: lambda: f(*args))(_parent_entry(VARIANT_DIR / "libparent.so"))
     want = fns["kernel"]()
     for name, fn in fns.items():
         if name not in NOT_LLRS and not torch.equal(fn(), want):
@@ -241,34 +158,25 @@ def measure(parent: str | None = None) -> dict:
         for name in turn:
             ms[name].append(event_ms(fns[name], iters=20, warmup=2))
     n = args[0].shape[1]
-    print(f"map_fused16 at B={B} K={K} L={L} T={T} (N={n}); each timed alone after an "
-          f"L2 flush, in turn; LLRs equal to the kernel's but for {', '.join(NOT_LLRS)}:")
+    bound_ms, by = turbo_kernel_bench.route_bound(("map_fused16",), B, K, L, T)
+    print(f"map_fused16 at B={B} K={K} L={L} T={T} (N={n}), bound {bound_ms:.4f} ms ({by}); "
+          f"each timed alone after an L2 flush, in turn; LLRs equal to the kernel's but for "
+          f"{', '.join(NOT_LLRS)}:")
     geo = tm.fused16_geometry(n, L)
     shape = {"kernel": f"{geo.lanes} lanes, {geo.smem_bytes} B shared a block",
-             "parent": "128 lanes a block, stores in device memory",
              **{name: "{} lanes, {} B shared a block".format(*variant_geometry(name, L))
                 for name in VARIANTS}}
     for name, t in ms.items():
         print(f"  {name:18s} {shape[name]:45s} {', '.join(f'{x:.4f}' for x in t)} ms")
     sass = {"kernel": sass_counts(kernel_lib, "fused16_kernel")}
-    if parent:
-        sass["parent"] = sass_counts(VARIANT_DIR / "libparent.so", "fused_kernelILi2E13__nv_bfloat16")
     for name, counts in sass.items():
         print(f"  SASS of the {name}: {sum(counts.values())} instructions; "
               + ", ".join(f"{op} {n}" for op, n in counts.most_common(8)))
-    res = {"ms": ms, "sass": sass}
-    if parent:
-        res["decode_ms"] = decode_in_turn(_parent_entry(VARIANT_DIR / "libparent.so"))
-        print("SISO v9 decode of 128 subframes (host clock, ms, in turn):")
-        for who, t in res["decode_ms"].items():
-            print(f"  {who:18s} best {min(t):.2f} ({', '.join(f'{x:.2f}' for x in t)})")
-    return res
+    return {"ms": ms, "sass": sass, "bound_ms": bound_ms}
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", metavar="DIR", help="an unpacked tree of commit edc98d6")
-    measure(ap.parse_args().parent)
+    measure()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,4 @@
-"""``map_fused`` (radix 2 and 4) on the card beside variants of its kernel
-and, with ``--parent DIR``, the kernel it replaced.
+"""``map_fused`` (radix 2 and 4) on the card beside variants of its kernel.
 
 ``csrc/turbo_fused.cu`` is built once for each distinct set of ``FUSED_*``
 switches (``nvcc -D``) and each variant launched with its own geometry
@@ -19,33 +18,25 @@ and the ring's bytes):
   two adds a pair in place of the trellis arithmetic;
 - ``compute_only``: the arithmetic and the stores, the ring never filled.
 
-``--parent DIR`` names an unpacked tree of commit 43eea58, whose
-``csrc/turbo_fused.cu`` holds the kernel this one replaced (one thread a
-lane, its phase-1 stores in device memory); another tree is refused.  It
-is timed beside this tree's, and the SISO decode of 128 subframes under
-``TURBO_KERNEL=v7`` and ``v8`` runs with either tree's kernel in the
-decoder's place, in turn, its host time and device time (torch.profiler)
-taken for each.
-
 At the 20 MHz bench shape (B = 1,664 blocks of K = 5,824, L = 208, T = 32)
-every variant whose outputs are LLRs, and the parent's kernel, must equal
-this tree's kernel exactly, at both radices.  Each is timed alone after an
-L2 flush, all in turn (forward, then backward).  Prints each build's
-registers and spills (``ptxas -v``) and the SASS opcode counts
-(``cuobjdump``) of the kernel and of the parent's.
+every variant whose outputs are LLRs must equal this tree's kernel
+exactly, at both radices.  Each is timed alone after an L2 flush, all in
+turn (forward, then backward), beside the kernel's bound
+(``tools/turbo_kernel_bench``).  Prints each build's registers and spills
+(``ptxas -v``) and the SASS opcode counts (``cuobjdump``) of the kernel.
 
-    python -m srsran_4g_tpu_torch.tools.fused_split [--parent DIR]
+    python -m srsran_4g_tpu_torch.tools.fused_split
 """
 
 from __future__ import annotations
 
-import argparse
 from pathlib import Path
 
 import torch
 
 from srsran_4g_tpu_torch.ops.cuda import build
 from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
+from srsran_4g_tpu_torch.tools import turbo_kernel_bench
 from srsran_4g_tpu_torch.tools import windowed_split as ws
 
 L, T = ws.L, ws.T
@@ -109,40 +100,14 @@ def variant_entry(name: str, n: int, radix: int):
     return run
 
 
-def parent_source(parent: str) -> Path:
-    src = Path(parent) / "srsran_4g_tpu_torch" / "csrc" / "turbo_fused.cu"
-    if not src.exists() or "astore, bstore" not in src.read_text():
-        raise ValueError(f"--parent {parent}: not a tree of commit 43eea58 (its "
-                         f"turbo_fused.cu keeps its stores in device memory)")
-    return src
-
-
-def parent_entry(lib: Path):
-    """The parent's kernel under the wrapper contract of its tree: two
-    (L/4, 8, N) f32 stores in device memory, allocated on every call."""
-    fn = ws.bind(lib, "turbo_map_fused", 7, 6)
-
-    def run(gs, gp, a0, b0, t, l, nof_b, nof_w, radix):
-        n = gs.shape[1]
-        out = gs.new_empty((l, n))
-        stores = [gs.new_empty((l // 4, 8, n)) for _ in range(2)]
-        ws.call(fn, "the parent's map_fused", gs, gp, a0, b0, *stores, out, n, t, l, nof_b,
-                nof_w, radix)
-        return out
-
-    return run
-
-
-def measure(parent: str | None = None) -> dict:
+def measure() -> dict:
     """Build, check, time and print; returns {"ms": {name: [ms]}, "usage":
-    {build: {kernel: registers and spills}}, "sass": {kernel: Counter}} and,
-    with ``parent``, {"decode": {TURBO_KERNEL: decode_in_turn's}}."""
+    {build: {kernel: registers and spills}}, "sass": {kernel: Counter},
+    "bound_ms": the kernel's bound at the bench shape}."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     src = build.CSRC / "turbo_fused.cu"
     procs = {build_name(name): ws.nvcc(src, library(name), variant_flags(name))
              for name in VARIANTS if build_name(name)}
-    if parent:
-        procs["parent"] = ws.nvcc(parent_source(parent), VARIANT_DIR / "libparent.so")
     kernel_lib = build.build(["turbo_fused"])["turbo_fused"]
     logs = {"kernel": kernel_lib.with_suffix(".log").read_text()}
     for name, proc in procs.items():
@@ -157,10 +122,6 @@ def measure(parent: str | None = None) -> dict:
     geo = {r: tm.fused_geometry(n, L, r) for r in RADICES}
     sass = {f"r{r}": ws.print_sass(kernel_lib, f"fused_kernelILi{geo[r].every}ELi{r}E")
             for r in RADICES}
-    if parent:
-        for r in RADICES:
-            sass[f"parent r{r}"] = ws.print_sass(VARIANT_DIR / "libparent.so",
-                                                 f"fused_kernelILi{r}Ef")
     fns, shape = {}, {}
     for r in RADICES:
         fns[f"r{r}"] = (lambda r: lambda: tm.map_fused(*args, radix=r))(r)
@@ -169,34 +130,21 @@ def measure(parent: str | None = None) -> dict:
             fns[f"r{r} {name}"] = (lambda f: lambda: f(*args))(variant_entry(name, n, r))
             g = variant_geometry(name, n, L, r)
             shape[f"r{r} {name}"] = f"{g.lanes} lanes, c={g.every}, {g.smem_bytes} B"
-        if parent:
-            fns[f"r{r} parent"] = (lambda f, r: lambda: f(*args, r))(
-                parent_entry(VARIANT_DIR / "libparent.so"), r)
-            shape[f"r{r} parent"] = "stores in device memory"
     want = {r: tm.map_fused(*args, radix=r) for r in RADICES}
     for name, fn in fns.items():
         if not any(name.endswith(v) for v in NOT_LLRS) and not torch.equal(
                 fn(), want[int(name[1])]):
             raise AssertionError(f"{name}: LLRs differ from the kernel's at the bench shape")
-    ms = ws.time_in_turn(fns, shape, f"map_fused at B={ws.B} K={ws.K} L={L} T={T} (N={n}); "
-                         f"each timed alone after an L2 flush, in turn; LLRs equal to the "
-                         f"kernel's but for {', '.join(NOT_LLRS)}:")
-    res = {"ms": ms, "usage": usage, "sass": sass}
-    if parent:
-        res["decode"] = {}
-        for kernel, r in (("v7", 2), ("v8", 4)):
-            d = ws.decode_in_turn("map_fused", kernel, parent_entry(VARIANT_DIR / "libparent.so"),
-                                  "fused_kernel")
-            res["decode"][kernel] = d
-            ws.print_decode(f"SISO decode of 128 subframes at 100 PRB 64QAM (TBS 75376), 30 dB, "
-                            f"n_iter 4, TURBO_KERNEL={kernel}, in turn:", "map_fused", d)
-    return res
+    bound_ms, by = turbo_kernel_bench.route_bound(("map_fused_r2",), ws.B, ws.K, L, T)
+    ms = ws.time_in_turn(fns, shape, f"map_fused at B={ws.B} K={ws.K} L={L} T={T} (N={n}), "
+                         f"bound {bound_ms:.4f} ms ({by}); each timed alone after an L2 "
+                         f"flush, in turn; LLRs equal to the kernel's but for "
+                         f"{', '.join(NOT_LLRS)}:")
+    return {"ms": ms, "usage": usage, "sass": sass, "bound_ms": bound_ms}
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", metavar="DIR", help="an unpacked tree of commit 43eea58")
-    measure(ap.parse_args().parent)
+    measure()
 
 
 if __name__ == "__main__":

@@ -72,7 +72,8 @@ def config_bits(name: str, rows: int) -> np.ndarray:
     return rng.integers(0, 2, size=(rows, c["tbs"])).astype(np.int8)
 
 
-def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+def parser() -> argparse.ArgumentParser:
+    """The launcher's and a rank's arguments."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1, help="ranks (OS processes)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -88,7 +89,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
-    return ap.parse_args(argv)
+    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)  # "dp,sp"
+    return ap
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    return parser().parse_args(argv)
 
 
 # ---- one rank ---------------------------------------------------------------
@@ -105,7 +111,8 @@ def rank_setup(args: argparse.Namespace):
 
         turbo_map.load_kernels()  # no rank waits in a collective for a build
         torch.cuda.reset_peak_memory_stats(dev)
-    dp, sp = mesh_shape(args.world)
+    dp, sp = (tuple(int(x) for x in args.mesh.split(",")) if args.mesh
+              else mesh_shape(args.world))
     return mesh_mod.make_mesh(dp=dp, sp=sp, device=dev)
 
 
@@ -175,13 +182,9 @@ def _stream_check(mesh, step, rows: int) -> dict[str, float]:
 def _profile(fn) -> dict:
     """One call of fn under torch.profiler: device ms (kernels and copies),
     their count, and the three costliest by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from srsran_4g_tpu_torch.tools import trace_bench
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops = trace_bench.kernel_events(fn, 1)
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:3]
     return {"device_ms": sum(e.self_device_time_total for e in ops) / 1e3,
             "kernels": sum(e.count for e in ops),
@@ -270,11 +273,12 @@ def rank_main(args: argparse.Namespace) -> None:
 def launch(n: int, device: str = "cuda", backend: str | None = None,
            configs: str = "tiny,bench", batch: int | None = None, reps: int = 0,
            measure: bool = False, timeout: float = 600.0, child: list[str] | None = None,
-           env: dict | None = None) -> list[dict]:
+           env: dict | None = None, mesh: tuple[int, int] | None = None) -> list[dict]:
     """Start n ranks and return their results in rank order.
 
     ``child`` is the rank's command before its arguments (default this
-    module); ``env`` its environment (default this process's; the package's
+    module); ``mesh`` its (dp, sp) shape (default ``mesh_shape(n)``);
+    ``env`` its environment (default this process's; the package's
     directory is put first on PYTHONPATH, and on the CPU OMP_NUM_THREADS
     shares the host's cores out unless it is set).  Raises with
     every rank's output tail if a rank fails, prints no result, or the
@@ -294,6 +298,10 @@ def launch(n: int, device: str = "cuda", backend: str | None = None,
     extra += ["--backend", backend] if backend else []
     extra += ["--batch", str(batch)] if batch else []
     extra += ["--measure"] if measure else []
+    if mesh:
+        if mesh[0] * mesh[1] != n:
+            raise ValueError(f"a mesh of {mesh} is not {n} ranks")
+        extra += ["--mesh", f"{mesh[0]},{mesh[1]}"]
     with tempfile.TemporaryDirectory(prefix="multichip-") as tmp:
         init = Path(tmp, "store").as_uri()
         logs = [Path(tmp, f"rank{r}.log") for r in range(n)]

@@ -1,6 +1,5 @@
 """``map_windowed``, ``map_v3`` and ``map_windowed16`` on the card beside
-variants of their kernel and, with ``--parent DIR``, the kernels of the
-parent tree.
+variants of their kernel.
 
 ``csrc/turbo_windowed.cu`` is built once for each distinct set of
 ``WINDOWED_*`` switches (``nvcc -D``) and each variant launched with its own
@@ -17,35 +16,21 @@ and tile, and the ring's bytes):
   one add a step and a position in place of the trellis arithmetic;
 - ``compute_only``: the arithmetic and the stores, the ring never filled.
 
-``--parent DIR`` names an unpacked tree of commit 43eea58, whose
-``csrc/turbo_map.cu`` holds the ``map_windowed16`` kernel this one replaced
-(one thread a lane, every body alpha stored in device memory) and whose
-``csrc/turbo_windowed.cu`` holds ``map_windowed`` and ``map_v3`` before
-their kernel took bf16 metrics too; those are built and timed beside this
-tree's kernels; another tree is refused.  The SISO decode of 128 subframes
-under ``TURBO_KERNEL=bf16`` (``decode_in_turn``), whose half-iterations run
-``map_windowed16``, then runs with either tree's kernel in the decoder's
-place, in turn, its host time and its device time (torch.profiler) taken
-for each.
-
 At the 20 MHz bench shape (B = 1,664 blocks of K = 5,824, L = 208, T = 32)
-every variant whose outputs are LLRs, and the parent's kernels, must equal
-this tree's kernel exactly.  Each is timed alone after an L2 flush, all in
-turn (forward, then backward).  Prints each build's registers and spills
-(``ptxas -v``) and the SASS opcode counts (``cuobjdump``) of the kernels at
-the bench geometry and of the parent's ``map_windowed16``.
+every variant whose outputs are LLRs must equal this tree's kernel
+exactly.  Each is timed alone after an L2 flush, all in turn (forward, then
+backward), beside each kernel's bound (``tools/turbo_kernel_bench``).
+Prints each build's registers and spills (``ptxas -v``) and the SASS opcode
+counts (``cuobjdump``) of the kernels at the bench geometry.
 
-    python -m srsran_4g_tpu_torch.tools.windowed_split [--parent DIR]
+    python -m srsran_4g_tpu_torch.tools.windowed_split
 """
 
 from __future__ import annotations
 
-import argparse
 import collections
 import ctypes
-import os
 import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
@@ -55,10 +40,9 @@ from srsran_4g_tpu_torch import resolve_device
 from srsran_4g_tpu_torch.ops import turbo
 from srsran_4g_tpu_torch.ops.cuda import build
 from srsran_4g_tpu_torch.ops.cuda import turbo_map as tm
-from srsran_4g_tpu_torch.tools import event_ms
+from srsran_4g_tpu_torch.tools import event_ms, turbo_kernel_bench
 
 B, K, L, T = 1664, 5824, 208, 32
-SISO_TBS = 75376  # 100 PRB, 64QAM: 13 code blocks of K = 5,824
 VARIANT_DIR = build.BUILD_DIR / "windowed_split"
 # name -> (its WINDOWED_* switches, windowed_geometry's every/lanes)
 VARIANTS = {
@@ -159,47 +143,6 @@ def variant_entry(name: str, wrapper: str, n: int):
     return run
 
 
-def parent_sources(parent: str) -> dict[str, Path]:
-    """The parent tree's sources of the kernels this tree's are timed
-    against."""
-    csrc = Path(parent) / "srsran_4g_tpu_torch" / "csrc"
-    srcs = {name: csrc / f"{name}.cu" for name in ("turbo_map", "turbo_windowed")}
-    if not all(p.exists() for p in srcs.values()) or "turbo_map_windowed16" in srcs[
-            "turbo_windowed"].read_text():
-        raise ValueError(f"--parent {parent}: not a tree of commit 43eea58 (its csrc/ "
-                         f"holds turbo_map.cu, and turbo_windowed.cu without bf16)")
-    return srcs
-
-
-def parent_entries(libs: dict[str, Path]) -> dict:
-    """The parent's kernels under the wrapper contracts of its tree:
-    map_windowed16 with an (L, 8, N) bf16 store in device memory, allocated
-    on every call; map_windowed and map_v3 at this tree's f32 geometry."""
-    fn16 = bind(libs["turbo_map"], "turbo_map_windowed16", 6, 5)
-
-    def windowed16(gs, gp, a0, b0, t, l, nof_b, nof_w):
-        n = gs.shape[1]
-        out, store = gs.new_empty((l, n)), gs.new_empty((l, 8, n), dtype=torch.bfloat16)
-        call(fn16, "the parent's map_windowed16", gs, gp, a0, b0, store, out, n, t, l, nof_b,
-             nof_w)
-        return out
-
-    def f32(wrapper):
-        fn = bind(libs["turbo_windowed"], ENTRIES[wrapper][0], 5, 8)
-
-        def run(gs, gp, a0, b0, t, l, nof_b, nof_w):
-            n = gs.shape[1]
-            geo = geometry(wrapper, n, l, t)
-            out = gs.new_empty((l, n))
-            call(fn, f"the parent's {wrapper}", gs, gp, a0, b0, out, n, t, l, nof_b, nof_w,
-                 geo.lanes, geo.every, geo.smem_bytes)
-            return out
-        return run
-
-    return {"map_windowed16": windowed16, "map_windowed": f32("map_windowed"),
-            "map_v3": f32("map_v3")}
-
-
 def inputs(device=None, seed: int = 0):
     """The bench shape's half-iteration inputs from random gammas (N(0, 3²))."""
     dev = resolve_device(device)
@@ -209,92 +152,6 @@ def inputs(device=None, seed: int = 0):
     ts, tp = (torch.as_tensor(rng.standard_normal((B, 3)).astype(np.float32), device=dev)
               for _ in range(2))
     return turbo._windowed_inputs(lsa, lp, ts, tp, L, T)[:4] + (T, L, B, K // L)
-
-
-def device_ms(fn, name: str, reps: int = 3) -> tuple[float, float]:
-    """Device time of ``fn()`` from torch.profiler, ms per call: all kernels,
-    and those whose name holds ``name``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
-    named = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / reps
-    return busy, named
-
-
-def decode_in_turn(wrapper: str, turbo_kernel: str, parent_fn, kernel_name: str,
-                   rounds: int = 4) -> dict:
-    """The SISO decode at 20 MHz (100 PRB, 64QAM, TBS 75,376: 13 code blocks
-    of K = 5,824; 128 subframes, AWGN at 30 dB, n_iter 4) under
-    ``TURBO_KERNEL=turbo_kernel``, with this tree's ``wrapper`` and
-    ``parent_fn`` in the decoder's place in turn (kernel, parent, parent,
-    kernel, ...), each decode exact.  Returns {"host_ms": {who: [ms]},
-    "device_ms": {who: [(all, kernels named kernel_name)]}, "launches":
-    {who: per decode}}."""
-    from srsran_4g_tpu_torch.channel import awgn
-    from srsran_4g_tpu_torch.models import grid, pdsch
-
-    os.environ["TURBO_KERNEL"] = turbo_kernel
-    cfg = pdsch.PdschConfig(cell=grid.CellConfig(nof_prb=100, cell_id=123, cfi=1),
-                            rnti=0x1234, subframe=4, mod="64qam", tbs=SISO_TBS)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    bits = torch.randint(0, 2, (128, cfg.tbs), generator=gen, device="cuda", dtype=torch.int8)
-    rx = awgn.awgn(pdsch.add_crs(cfg, pdsch.encode(cfg, bits)), awgn.snr_to_noise_var(30.0),
-                   generator=gen)
-    calls = collections.Counter()
-
-    def counted(who, fn):
-        def run(*args, **kw):
-            calls[who] += 1
-            return fn(*args, **kw)
-        return run
-
-    kernel_fn = getattr(tm, wrapper)
-    fns = {"kernel": counted("kernel", kernel_fn), "parent": counted("parent", parent_fn)}
-    res = {"host_ms": {who: [] for who in fns}, "device_ms": {}, "launches": {}}
-
-    def decode():
-        out = pdsch.decode(cfg, rx, n_iter=4)
-        torch.cuda.synchronize()
-        return out
-
-    try:
-        for turn in (("kernel", "parent"), ("parent", "kernel")) * (rounds // 2 + 1):
-            for who in turn:
-                setattr(tm, wrapper, fns[who])
-                torch.cuda.synchronize()
-                before = calls[who]
-                t0 = time.perf_counter()
-                out = decode()
-                res["host_ms"][who].append((time.perf_counter() - t0) * 1e3)
-                res["launches"][who] = calls[who] - before
-                if not (bool(out["crc_ok"].all()) and torch.equal(out["bits"], bits)):
-                    raise AssertionError(f"TURBO_KERNEL={turbo_kernel} decode with the "
-                                         f"{who}'s {wrapper}: not exact")
-        for who in ("kernel", "parent", "parent", "kernel"):
-            setattr(tm, wrapper, fns[who])
-            res["device_ms"].setdefault(who, []).append(device_ms(decode, kernel_name))
-    finally:
-        setattr(tm, wrapper, kernel_fn)
-        os.environ.pop("TURBO_KERNEL", None)
-    if not all(res["launches"].values()):
-        raise AssertionError(f"the TURBO_KERNEL={turbo_kernel} decode ran no {wrapper}: "
-                             f"{res['launches']}")
-    res["host_ms"] = {who: t[1:] for who, t in res["host_ms"].items()}  # the first warms up
-    return res
-
-
-def print_decode(title: str, wrapper: str, d: dict) -> None:
-    print(title)
-    for who, t in d["host_ms"].items():
-        dev = ", ".join(f"{a:.3f} ({w:.4f})" for a, w in d["device_ms"][who])
-        print(f"  {who:8s} {wrapper} calls {d['launches'][who]}; host ms best {min(t):.2f} "
-              f"({', '.join(f'{x:.2f}' for x in t)}); device ms (of it {wrapper}) {dev}")
 
 
 def print_usage(usage: dict) -> None:
@@ -328,17 +185,14 @@ def time_in_turn(fns: dict, shape: dict, title: str) -> dict[str, list[float]]:
     return ms
 
 
-def measure(parent: str | None = None) -> dict:
+def measure() -> dict:
     """Build, check, time and print; returns {"ms": {name: [ms]}, "usage":
-    {build: {kernel: registers and spills}}, "sass": {kernel: Counter}} and,
-    with ``parent``, {"decode": decode_in_turn's}."""
+    {build: {kernel: registers and spills}}, "sass": {kernel: Counter},
+    "bound_ms": {wrapper: its bound at the bench shape}}."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     src = build.CSRC / "turbo_windowed.cu"
     procs = {build_name(name): nvcc(src, library(name), variant_flags(name))
              for name in VARIANTS if build_name(name)}
-    psrc = parent_sources(parent) if parent else {}
-    for name, path in psrc.items():
-        procs[f"parent_{name}"] = nvcc(path, VARIANT_DIR / f"libparent_{name}.so")
     kernel_lib = build.build(["turbo_windowed"])["turbo_windowed"]
     logs = {"kernel": kernel_lib.with_suffix(".log").read_text()}
     for name, proc in procs.items():
@@ -356,26 +210,20 @@ def measure(parent: str | None = None) -> dict:
         pieces = ((f"v3_kernelILi{geo.every}E",) if wrapper == "map_v3" else
                   (f"windowed_kernelILi{geo.every}E", "B16" if wrapper.endswith("16") else "F32"))
         sass[wrapper] = print_sass(kernel_lib, *pieces)
-    if parent:
-        sass["parent map_windowed16"] = print_sass(VARIANT_DIR / "libparent_turbo_map.so",
-                                                   "map_windowed_kernel")
-    fns, shape = {}, {}
+    fns, shape, bounds = {}, {}, {}
     for wrapper in ENTRIES:
         fns[wrapper] = (lambda f: lambda: f(*args))(getattr(tm, wrapper))
         geo = geometry(wrapper, n, L, T)
-        shape[wrapper] = f"{geo.lanes} lanes, c={geo.every}, {geo.smem_bytes} B"
+        route = "turbo_map" if wrapper == "map_windowed" else wrapper
+        bounds[wrapper] = turbo_kernel_bench.route_bound((route,), B, K, L, T)[0]
+        shape[wrapper] = (f"{geo.lanes} lanes, c={geo.every}, {geo.smem_bytes} B, "
+                          f"bound {bounds[wrapper]:.4f} ms")
         for name in VARIANTS:
             if applies(name, wrapper):
                 key = f"{wrapper} {name}"
                 fns[key] = (lambda f: lambda: f(*args))(variant_entry(name, wrapper, n))
                 g = variant_geometry(name, wrapper, n, L, T)
                 shape[key] = f"{g.lanes} lanes, c={g.every}, {g.smem_bytes} B"
-    if parent:
-        libs = {name: VARIANT_DIR / f"libparent_{name}.so" for name in psrc}
-        for wrapper, fn in parent_entries(libs).items():
-            fns[f"parent {wrapper}"] = (lambda f: lambda: f(*args))(fn)
-            shape[f"parent {wrapper}"] = ("stores in device memory" if wrapper.endswith("16")
-                                          else shape[wrapper])
     want = {"map_windowed": tm.map_windowed(*args), "map_windowed16": tm.map_windowed16(*args)}
     want["map_v3"] = want["map_windowed"]
     for name, fn in fns.items():
@@ -385,19 +233,11 @@ def measure(parent: str | None = None) -> dict:
     ms = time_in_turn(fns, shape, f"at B={B} K={K} L={L} T={T} (N={n}); each timed alone "
                       f"after an L2 flush, in turn; LLRs equal to the kernel's but for "
                       f"{', '.join(NOT_LLRS)}:")
-    res = {"ms": ms, "usage": usage, "sass": sass}
-    if parent:
-        res["decode"] = decode_in_turn("map_windowed16", "bf16",
-                                       parent_entries(libs)["map_windowed16"], "windowed_kernel")
-        print_decode("SISO decode of 128 subframes at 100 PRB 64QAM (TBS 75376), 30 dB, "
-                     "n_iter 4, TURBO_KERNEL=bf16, in turn:", "map_windowed16", res["decode"])
-    return res
+    return {"ms": ms, "usage": usage, "sass": sass, "bound_ms": bounds}
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", metavar="DIR", help="an unpacked tree of commit 43eea58")
-    measure(ap.parse_args().parent)
+    measure()
 
 
 if __name__ == "__main__":

@@ -23,7 +23,10 @@ blind search over a 273 PRB CORESET (one batched polar decode a level)
 equal on the card and the CPU bit for bit; the 20 MHz V2X TM4 receiver
 (``models/sl_rx``) over 8 data subframes, an NB-IoT batch of 64 and the
 CORESET#0 + SIB1 receiver at 106 PRB on the card equal to the CPU (the
-sidelink and SIB1 captures from ``chip_smoke.py``'s transmitters).
+sidelink and SIB1 captures from ``chip_smoke.py``'s transmitters); the
+measuring tools (``tools.profile_components``, ``turbo_kernel_bench``'s half
+mode on three routes, ``trace_bench``, ``dp_evidence``, ``scaling_bench`` at
+dp 1 and 2 over Gloo) at reduced batches.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -43,7 +46,9 @@ from srsran_4g_tpu_torch.models import (chest, dci_nr, enb_dl, grid, grid_nr, pb
                                         prach, pusch, uci, ue_dl)
 from srsran_4g_tpu_torch.ops import polar_3gpp, turbo
 from srsran_4g_tpu_torch.ops.cuda import probes, turbo_map
-from srsran_4g_tpu_torch.tools import ber_sweep, multichip, run_lte, run_nr, three_process
+from srsran_4g_tpu_torch.tools import (ber_sweep, dp_evidence, multichip, profile_components,
+                                       run_lte, run_nr, scaling_bench, three_process,
+                                       trace_bench, turbo_kernel_bench)
 
 torch.set_num_threads(2)
 
@@ -670,3 +675,48 @@ def test_multichip_gloo_two_ranks_one_card(cuda_device):
         assert bench["metrics"]["bit_errors"] == 0 and bench["metrics"]["bler"] == 0
         assert bench["cb_lanes"] == 7  # 13 lanes padded to 14, over 2 ranks
         assert max(bench["stream_check"].values()) <= multichip.STREAM_ATOL
+
+
+def test_profile_components_on_card(cuda_device, monkeypatch):
+    """tools/profile_components at 16 subframes: the seven lines with host and
+    device busy ms, the staged bits equal to pdsch.decode's."""
+    monkeypatch.delenv("TURBO_KERNEL", raising=False)
+    res = profile_components.run(16, "cuda", out=None)
+    assert tuple(res["lines"]) == profile_components.NAMES
+    assert all(v["device_busy_ms"] > 0 for v in res["lines"].values())
+    assert set(res["stage_span_ms"]) == {"chest", "equalise_demod_descramble", "dlsch_decode"}
+
+
+@pytest.mark.parametrize("kernel", ["v9", "v4", "v5"])
+def test_turbo_kernel_bench_half_on_card(cuda_device, kernel, monkeypatch):
+    """tools/turbo_kernel_bench half mode at 64 blocks of K = 5824: the
+    half-iteration equal to _map_windowed's, the kernel alone against its
+    plain version (max |diff| 0; sweep + emit within 1e-3), device times."""
+    monkeypatch.setenv("TURBO_KERNEL", kernel)
+    d = turbo_kernel_bench.make_llrs(64, 5824, "cuda")
+    res = turbo_kernel_bench.half(d, 208, 32, iters=3)
+    assert res["max_abs_err"] <= (0 if kernel != "v5" else chip_smoke.ATOL)
+    assert res["kernel_device_ms"] > 0 and res["half_iter_device_ms"] > res["kernel_device_ms"]
+    k = 5824
+    t1_sys = torch.stack([d[:, 0, k], d[:, 2, k], d[:, 1, k + 1]], -1)
+    t1_par = torch.stack([d[:, 1, k], d[:, 0, k + 1], d[:, 2, k + 1]], -1)
+    assert torch.equal(res["llr"], turbo._map_windowed(d[:, 0, :k], d[:, 1, :k], t1_sys,
+                                                       t1_par, 208, 32))
+
+
+def test_trace_and_dp_evidence_on_card(cuda_device, tmp_path, monkeypatch):
+    """tools/trace_bench (8 subframes, one decode: the trace written, device
+    time seen) and tools/dp_evidence (batches 8 and 16, every CRC)."""
+    monkeypatch.delenv("TURBO_KERNEL", raising=False)
+    tr = trace_bench.run(8, 1, "cuda", str(tmp_path))
+    assert (tmp_path / "trace.json").stat().st_size > 0 and tr["profile"]["device_ms"] > 0
+    dp = dp_evidence.run([8, 16], 1, 4, 16, "cuda", out=None)
+    assert all(r["crc_all_ok"] and r["device_busy_ms"] > 0 for r in dp["batch_sweep"])
+
+
+def test_scaling_bench_two_ranks_on_card(cuda_device, tmp_path):
+    """tools/scaling_bench at dp 1 and 2 over Gloo on one card: BLER 0."""
+    res = scaling_bench.run([1, 2], per_dev=2, iters=1, device="cuda", backend="gloo",
+                            out=str(tmp_path / "scaling.json"))
+    assert [r["bler"] for r in res["rows"]] == [0.0, 0.0]
+    assert all(r["step_device_busy_ms"] > 0 for r in res["rows"])

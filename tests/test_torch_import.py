@@ -27,6 +27,8 @@ EXPECTED = ("ops.cuda.turbo_map", "models.pdsch", "models.pdsch_mimo", "ops.ofdm
             "models.sl_rx", "models.nbiot", "models.nbiot_data", "models.csi_nr",
             "models.coreset0", "parallel.mesh", "parallel.dist", "parallel.stream",
             "parallel.pipeline", "tools.multichip", "tools.ber_sweep", "tools.bler_sweep",
+            "tools.turbo_kernel_bench", "tools.profile_components", "tools.trace_bench",
+            "tools.dp_evidence", "tools.scaling_bench",
             *(f"utils.{m}" for m in ("io", "log", "metrics", "sys_metrics", "checkpoint",
                                      "crash_handler")),
             *(f"stack.{m}" for m in (
