@@ -172,7 +172,8 @@ recursion at T = 0 for the single-chain kernels, T = 32 for the fused
 ones), and ``map_fused16`` also at the uplink's and the PMCH's shapes
 (L = 192 and 184, timed, their launches per decode in its entry of the
 kernels line); each kernel's launch geometry is logged beside its build's
-registers and spills, and given in the kernels line.  The decodes under ``bf16``,
+registers and spills, and given in the kernels line, with the SASS opcodes
+of probe 7's loop (``cuobjdump -sass``).  The decodes under ``bf16``,
 ``v7`` and ``v8`` are profiled for their device time.
 
 Output (stdout): the card's name and power limit, the build and check
@@ -184,16 +185,19 @@ there is no CPU fallback.  Imports nothing of JAX or of srsran_4g_tpu.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib.metadata
-import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -863,11 +867,14 @@ def probes_phase(card: str) -> list[dict]:
     shapes through the tools' ``measure`` entry points (each kernel's ms from
     CUDA events), the launch counts of that run, then each kernel against
     its plain version on the same inputs (f32 atol 1e-3, bf16 the 16-bit
-    bars).  Returns the probes' entries of the kernels line."""
+    bars), and the card's launch floor (the empty kernel on one block, back
+    to back), which bounds ``probe_empty``.  Returns the probes' entries of
+    the kernels line."""
     from srsran_4g_tpu_torch.ops.cuda import probes
     from srsran_4g_tpu_torch.tools import turbo_probe2 as p2
     from srsran_4g_tpu_torch.tools import turbo_probe3 as p3
     from srsran_4g_tpu_torch.tools import turbo_probe6 as p6
+    from srsran_4g_tpu_torch.tools import event_ms
     from srsran_4g_tpu_torch.tools import turbo_probe7 as p7
 
     reset_counts()
@@ -963,6 +970,13 @@ def probes_phase(card: str) -> list[dict]:
         f"{8 * p7.TC} f32 lanes, {r7_full['ratio']:.3f} at {8 * P7_FULL_TILE_C}")
     log(f"[{card}] probe 3: host {r3['host_ms_per_launch'] * 1e3:.2f} us per ctypes "
         f"launch against {r3['device_ms_per_launch'] * 1e3:.2f} us of device time")
+    # the launch floor: the empty kernel on one block of 32 lanes, back to
+    # back behind a spin; no design of a body takes a launch below it
+    one = [torch.zeros((1, 32), device="cuda")]
+    floor_ms = event_ms(lambda: probes.probe_empty(one, 1, threads=32), iters=100,
+                        flush=False)
+    log(f"[{card}] launch floor: {floor_ms * 1e3:.2f} us of device time a launch of one "
+        f"block, back to back")
 
     kernels = []
     for name in probes.KERNELS:
@@ -979,8 +993,13 @@ def probes_phase(card: str) -> list[dict]:
         extra = {k: r[k] for k in ("gelem_s", "ms_tpu_default", "gelem_s_tpu_default")
                  if k in r}
         if name == "probe3_empty":
+            # the launch, not its 8 bytes a lane, bounds this kernel
             extra = dict(host_ms_per_launch=r3["host_ms_per_launch"],
-                         configs={k: v for k, v in r3.items() if k.startswith("empty")})
+                         configs={k: v for k, v in r3.items() if k.startswith("empty")},
+                         launch_floor_ms=floor_ms,
+                         bound_with_launch_ms=max(bound_ms, floor_ms))
+            log(f"[{card}] {name}: bound with the launch floor {max(bound_ms, floor_ms):.4f} "
+                f"ms, {max(bound_ms, floor_ms) / r['ms']:.3f} of it")
         kernels.append(dict(
             name=name, route="cuda", source=f"srsran_4g_tpu_torch/csrc/{source}",
             replaces=probes.REPLACES[name], path="probes", shapes=dict(
@@ -988,6 +1007,34 @@ def probes_phase(card: str) -> list[dict]:
             launches=counts[name], max_abs_err=err, ms=r["ms"], plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, library_ms=None, **extra))
     return kernels
+
+
+def sass_loops(lib: Path, *patterns: str) -> list[collections.Counter]:
+    """Opcode counts of each innermost loop (the instructions from a
+    backward branch's target to the branch, holding no other loop) of the
+    kernels in ``lib`` (``cuobjdump -sass``) whose mangled name holds every
+    one of ``patterns``, in the order of the SASS."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    funcs, ins = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            ins = [] if all(p in line for p in patterns) else None
+            if ins is not None:
+                funcs.append(ins)
+        elif ins is not None and (m := re.match(
+                r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);", line)):
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for ins in funcs:
+        spans = [(int(t.group(1), 16), at) for at, op, rest in ins
+                 if op.startswith("BRA") and (t := re.search(r"0x([0-9a-f]+)", rest))
+                 and int(t.group(1), 16) < at]
+        for lo, hi in spans:
+            if not any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in spans):
+                loops.append(collections.Counter(op for at, op, _ in ins if lo <= at <= hi))
+    return loops
 
 
 def ctrl_traffic(dev, gen):
@@ -3550,11 +3597,22 @@ def tools_path(dev, card: str) -> dict:
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        buf = io.StringIO()
-        with environ(**TOOLS_ENV["profile_components"]), contextlib.redirect_stdout(buf):
-            pc = profile_components.main(["--out", os.path.join(tmp, "pc.json")])
-        log(buf.getvalue().rstrip())
-        lines = profile_components.parse(buf.getvalue())
+        # in a process of its own: late in this long process torch.profiler
+        # now and then loses a session's device records (all 28 of chest's
+        # kernels in the median of three sessions), which a fresh process has
+        # not shown
+        pc_json = os.path.join(tmp, "pc.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "srsran_4g_tpu_torch.tools.profile_components", "--device",
+             dev.type, "--out", pc_json], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, **TOOLS_ENV["profile_components"]})
+        log(proc.stdout.rstrip())
+        if proc.returncode:
+            raise RuntimeError(f"profile_components failed:\n{proc.stderr[-3000:]}")
+        with open(pc_json) as f:
+            pc = json.load(f)
+        lines = profile_components.parse(proc.stdout)
         if tuple(lines) != profile_components.NAMES or (dev.type == "cuda" and any(
                 v["device_busy_ms"] is None for v in lines.values())):
             raise AssertionError(f"profile_components printed {list(lines)}")
@@ -3645,6 +3703,12 @@ def main() -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # probe 7's loop as nvcc left it (unrolled 4 times): f32 and packed bf16
+    # should issue the same adds, subtracts and maxes
+    for key, pattern in (("f32", "probe7_kernelIf"), ("bf16", "probe7_kernelI14")):
+        for loop in sass_loops(libs["probe_acs"], pattern):
+            log(f"probe7 {key} loop SASS: {sum(loop.values())} instructions; "
+                + ", ".join(f"{op} {n}" for op, n in sorted(loop.items())))
 
     # ---- each kernel against its plain version, on the card ---------------
     gen = torch.Generator(device=dev).manual_seed(SEED)

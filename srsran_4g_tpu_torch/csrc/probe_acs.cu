@@ -14,28 +14,33 @@
 // Pallas bodies in interpret mode) agree with it to float rounding, exactly
 // in bf16.
 //
-// Design: one thread per lane, the 8 state metrics in registers, loads
-// coalesced along lanes ([row][lane] layouts).  In bf16x2 one thread runs
-// two lane groups as one __nv_bfloat162 per state (__hadd2, __hsub2,
-// __hmax2; each half rounds to nearest even, as torch and XLA round each
-// bf16 op).  Where the TPU body kept a store in VMEM scratch (probe 2's
-// astore), the store is a device-memory buffer, as in turbo_fused.cu.
-// Nothing here is forced against the compiler: a body whose work nvcc
-// removes (fixedrow's loop-invariant loads, the unread states of addchain,
-// addpar and load1x) is reported as folded, as the TPU probe measured what
-// Mosaic kept.
+// Design: the 8 state metrics of a lane in registers, loads coalesced along
+// lanes ([row][lane] layouts).  In bf16x2 a thread's __nv_bfloat162 holds
+// two lanes or two lane groups (__hadd2, __hsub2, __hmax2; each half rounds
+// to nearest even, as torch and XLA round each bf16 op).  Probe 2 and probe
+// 6's skeleton run one thread a lane; probe 6's pair splits its chains
+// over two warps and fetches its gammas ahead, and probe 7 keeps one metric
+// a state pair (each at its section).  Where the TPU body kept a store in
+// VMEM scratch (probe 2's astore), the store is a device-memory buffer, as
+// in turbo_fused.cu.  Nothing here is forced against the compiler: a body
+// whose work nvcc removes (fixedrow's loop-invariant loads, the unread
+// states of addchain, addpar and load1x) is reported as folded, as the TPU
+// probe measured what Mosaic kept.
 //
-// What bounds them on the H100: compute.  Every probe reads a few bytes per
-// trellis step of each lane and does 20-60 add/max/sub operations per step;
-// at one operation per lane per cycle (132 SMs x 128 lanes x 1.98 GHz =
-// 33.5 T op/s; two bf16 elements per bf16x2 instruction) the operations
-// outweigh the bytes at 3.35 TB/s by 5-30x, except probe 2's loadsonly,
-// load1, load1x, empty and astore bodies, which the bytes bound.
+// What bounds them on the H100: compute, but for probe 6's pair.  Every
+// probe reads a few bytes per trellis step of each lane and does 20-60
+// add/max/sub operations per step; at one operation per lane per cycle (132
+// SMs x 128 lanes x 1.98 GHz = 33.5 T op/s; two bf16 elements per bf16x2
+// instruction) the operations outweigh the bytes at 3.35 TB/s by 5-30x,
+// except probe 2's loadsonly, load1, load1x, empty and astore bodies, which
+// the bytes bound, and probe 6's pair, whose four gamma rows a step each
+// chain reads put its bytes just above its operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -227,14 +232,44 @@ __global__ void __launch_bounds__(128)
 // Path-labelled tables (j = (u1 << 1) | u2): candidate j of alpha state s is
 // (alpha[r4_pred(s, j)] + (p1*gp0 + p2*gp1)) + u-row j, with u-rows
 // (none, gs1, gs0, gs0 + gs1); beta the same over r4_next.  Both chains are
-// normalised to state 0 after every step; in bf16x2 both lane groups are
+// normalised to state 0 after every step; in bf16 both lane groups are
 // normalised to group 0's state 0, as make_bf16 broadcasts new[0:1] over all
 // 16 sublanes.
+//
+// The pair on Hopper.  The TPU body runs both chains one after the other in
+// one grid step.  One thread a lane doing the same waits on its gamma loads
+// every step, and 86,528 threads fill a third of the card's thread slots.
+// So:
+// - the chains split: a block is two warps over one tile of 32 threads'
+//   lanes, warp 0 runs alpha and warp 1 beta;
+// - the gammas leave the critical path: a thread holds the rows of its next
+//   kP6Depth steps in registers, each fetched kP6Depth steps ahead, before
+//   the step's arithmetic, so a step waits only on its own ACS chain;
+// - bf16 where H is even and the arrays 4-byte aligned: a thread runs lanes
+//   h and h + 1 of both groups, each metric a __nv_bfloat162 of the two
+//   lanes, so every row and metric is one 32-bit word a group, used as read
+//   (else one lane a thread, the two groups packed, 16-bit reads).
+// What still bounds it: every row is read twice, by alpha at step i and by
+// beta at step S-1-i, and with every lane in flight the rows alpha reads
+// early are gone from the L2 by the time beta reads them, so most rows come
+// from device memory twice.  The arithmetic and its order are make_full's
+// and make_bf16's, so the outputs equal the plain versions' (bf16 bit for
+// bit).
+//
+// f32: g2s, g2p (steps, 2, N): [i][0] = row 2i, [i][1] = row 2i+1; a0, b0,
+// aout, bout (8, N).  bf16: g2s, g2p (steps, 2, 2, H) [i][row][group][h];
+// a0, b0, aout, bout (16, H), rows 0-7 group 0's states, 8-15 group 1's.
+// kP6Depth steps of gammas in flight a thread; at most 48 registers in f32,
+// so that 21 blocks of 64 threads (1,344) fit an SM and the probe's 2,704
+// tiles (86,528 lanes) run in one round on 132 SMs
+constexpr int kP6Warp = 32, kP6Depth = 3, kP6MinBlocksF32 = 21;
+
+// One radix-4 step of x into n, unnormalised.
 template <bool BETA, class M>
-__device__ __forceinline__ void probe6_acs(M x[8], M g0s, M g0p, M g1s, M g1p) {
+__device__ __forceinline__ void probe6_new(const M x[8], M n[8], M g0s, M g0p, M g1s,
+                                           M g1p) {
   const M u3 = add(g0s, g1s);
   const M p3 = add(g0p, g1p);
-  M n[8];
   unroll<0, 8>([&](auto s_) {
     constexpr int S = decltype(s_)::value;
     M c[4];
@@ -253,63 +288,192 @@ __device__ __forceinline__ void probe6_acs(M x[8], M g0s, M g0p, M g1s, M g1p) {
     });
     n[S] = mx(mx(c[0], c[1]), mx(c[2], c[3]));
   });
-  M z;
-  if constexpr (std::is_same<M, float>::value)
-    z = n[0];
-  else
-    z = __bfloat162bfloat162(__low2bfloat16(n[0]));
+}
+
+template <class M>
+__device__ __forceinline__ void p6_norm(M x[8], const M n[8], M z) {
 #pragma unroll
   for (int s = 0; s < 8; ++s) x[s] = sub(n[s], z);
 }
 
-// f32: g2s, g2p (steps, 2, N): [i][0] = row 2i, [i][1] = row 2i+1; a0, b0,
-// aout, bout (8, N).  bf16x2 (two lane groups): g2s, g2p (steps, 2, 2, H)
-// bf16 [i][row][group][h]; a0, b0, aout, bout (16, H) bf16, rows 0-7 group
-// 0's states, 8-15 group 1's; one thread per h, the two groups packed.
-__device__ __forceinline__ float load_m(const float* p, size_t) { return *p; }
-__device__ __forceinline__ __nv_bfloat162 load_m(const __nv_bfloat16* p,
-                                                 size_t group_stride) {
-  return __halves2bfloat162(p[0], p[group_stride]);
-}
-__device__ __forceinline__ void store_m(float* p, size_t, float v) { *p = v; }
-__device__ __forceinline__ void store_m(__nv_bfloat16* p, size_t group_stride,
-                                        __nv_bfloat162 v) {
-  p[0] = __low2bfloat16(v);
-  p[group_stride] = __high2bfloat16(v);
+// One step's gamma rows for one thread, as fetched, and what the thread
+// does with them: K metric vectors of 8 states of type M, acs<BETA> one
+// step of them; metrics_in/out move them from and to (8, n) or (16, n).
+// s, p: the thread's first lane in g2s, g2p; at: the step's offset, rs the
+// row stride, gs the group stride, in elements.
+template <class E, int P>
+struct P6Rows;
+
+template <>
+struct P6Rows<float, 1> {
+  using Elem = float;
+  using M = float;
+  static constexpr int K = 1;
+  float q[4];  // (s row 2i, p row 2i, s row 2i+1, p row 2i+1)
+  __device__ __forceinline__ void load(const float* s, const float* p, long long at,
+                                       long long rs, long long) {
+    q[0] = __ldg(s + at);
+    q[1] = __ldg(p + at);
+    q[2] = __ldg(s + (at + rs));
+    q[3] = __ldg(p + (at + rs));
+  }
+  template <bool BETA>
+  __device__ __forceinline__ void acs(float (&x)[1][8]) const {
+    float n[8];
+    probe6_new<BETA>(x[0], n, q[0], q[1], q[2], q[3]);
+    p6_norm(x[0], n, n[0]);
+  }
+  static __device__ __forceinline__ void metrics_in(const float* x0, size_t n, size_t h,
+                                                    float (&x)[1][8]) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) x[0][s] = x0[s * n + h];
+  }
+  static __device__ __forceinline__ void metrics_out(float* xo, size_t n, size_t h,
+                                                     const float (&x)[1][8]) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) xo[s * n + h] = x[0][s];
+  }
+};
+
+// bf16, lanes h and h + 1 (h even, H even, every array 4-byte aligned): one
+// word a quantity and group, x[g] group g's metrics of both lanes
+template <>
+struct P6Rows<__nv_bfloat16, 2> {
+  using Elem = __nv_bfloat16;
+  using M = __nv_bfloat162;
+  static constexpr int K = 2;
+  __nv_bfloat162 w[4][2];  // [quantity][group]
+  __device__ __forceinline__ void load(const __nv_bfloat16* s, const __nv_bfloat16* p,
+                                       long long at, long long rs, long long gs) {
+    using W = __nv_bfloat162;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      w[0][g] = __ldg(reinterpret_cast<const W*>(s + (at + g * gs)));
+      w[1][g] = __ldg(reinterpret_cast<const W*>(p + (at + g * gs)));
+      w[2][g] = __ldg(reinterpret_cast<const W*>(s + (at + rs + g * gs)));
+      w[3][g] = __ldg(reinterpret_cast<const W*>(p + (at + rs + g * gs)));
+    }
+  }
+  template <bool BETA>
+  __device__ __forceinline__ void acs(__nv_bfloat162 (&x)[2][8]) const {
+    __nv_bfloat162 n0[8], n1[8];
+    probe6_new<BETA>(x[0], n0, w[0][0], w[1][0], w[2][0], w[3][0]);
+    probe6_new<BETA>(x[1], n1, w[0][1], w[1][1], w[2][1], w[3][1]);
+    p6_norm(x[0], n0, n0[0]);  // group 0's state 0, of each lane
+    p6_norm(x[1], n1, n0[0]);
+  }
+  static __device__ __forceinline__ void metrics_in(const __nv_bfloat16* x0, size_t n,
+                                                    size_t h, __nv_bfloat162 (&x)[2][8]) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+        x[g][s] = *reinterpret_cast<const __nv_bfloat162*>(x0 + (8 * g + s) * n + h);
+  }
+  static __device__ __forceinline__ void metrics_out(__nv_bfloat16* xo, size_t n, size_t h,
+                                                     const __nv_bfloat162 (&x)[2][8]) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+        *reinterpret_cast<__nv_bfloat162*>(xo + (8 * g + s) * n + h) = x[g][s];
+  }
+};
+
+// bf16, one lane (odd H, or an array not 4-byte aligned): a 16-bit value a
+// quantity and group, the two groups packed in one __nv_bfloat162
+template <>
+struct P6Rows<__nv_bfloat16, 1> {
+  using Elem = __nv_bfloat16;
+  using M = __nv_bfloat162;
+  static constexpr int K = 1;
+  __nv_bfloat16 e[4][2];
+  __device__ __forceinline__ void load(const __nv_bfloat16* s, const __nv_bfloat16* p,
+                                       long long at, long long rs, long long gs) {
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      e[0][g] = __ldg(s + (at + g * gs));
+      e[1][g] = __ldg(p + (at + g * gs));
+      e[2][g] = __ldg(s + (at + rs + g * gs));
+      e[3][g] = __ldg(p + (at + rs + g * gs));
+    }
+  }
+  template <bool BETA>
+  __device__ __forceinline__ void acs(__nv_bfloat162 (&x)[1][8]) const {
+    __nv_bfloat162 n[8];
+    probe6_new<BETA>(x[0], n, __halves2bfloat162(e[0][0], e[0][1]),
+                     __halves2bfloat162(e[1][0], e[1][1]),
+                     __halves2bfloat162(e[2][0], e[2][1]),
+                     __halves2bfloat162(e[3][0], e[3][1]));
+    p6_norm(x[0], n, __bfloat162bfloat162(__low2bfloat16(n[0])));
+  }
+  static __device__ __forceinline__ void metrics_in(const __nv_bfloat16* x0, size_t n,
+                                                    size_t h, __nv_bfloat162 (&x)[1][8]) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+      x[0][s] = __halves2bfloat162(x0[s * n + h], x0[(8 + s) * n + h]);
+  }
+  static __device__ __forceinline__ void metrics_out(__nv_bfloat16* xo, size_t n, size_t h,
+                                                     const __nv_bfloat162 (&x)[1][8]) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      xo[s * n + h] = __low2bfloat16(x[0][s]);
+      xo[(8 + s) * n + h] = __high2bfloat16(x[0][s]);
+    }
+  }
+};
+
+// One chain (alpha forward over the steps, beta backward) of one thread's
+// lanes h ..: G lane groups in memory.
+template <bool BETA, class R, int G>
+__device__ __forceinline__ void p6_chain(const typename R::Elem* g2s,
+                                         const typename R::Elem* g2p,
+                                         const typename R::Elem* x0, typename R::Elem* xout,
+                                         size_t n, int steps, size_t h) {
+  constexpr int D = kP6Depth;
+  const typename R::Elem* s = g2s + h;
+  const typename R::Elem* p = g2p + h;
+  const long long gs = (long long)n, rs = G * gs, ss = 2 * rs;
+  // step j's rows into a ring slot
+  R ring[D];
+  const auto fetch = [&](R& slot, int j) {
+    slot.load(s, p, (long long)(BETA ? steps - 1 - j : j) * ss, rs, gs);
+  };
+  typename R::M x[R::K][8];
+  R::metrics_in(x0, n, h, x);
+  unroll<0, D>([&](auto v_) {
+    constexpr int V = decltype(v_)::value;
+    if (V < steps) fetch(ring[V], V);
+  });
+  for (int i0 = 0; i0 < steps; i0 += D)
+    unroll<0, D>([&](auto u_) {
+      constexpr int U = decltype(u_)::value;
+      const int i = i0 + U;
+      if (i < steps) {
+        const R cur = ring[U];
+        if (i + D < steps) fetch(ring[U], i + D);
+        cur.template acs<BETA>(x);
+      }
+    });
+  R::metrics_out(xout, n, h, x);
 }
 
-// E: the element type in memory (float or __nv_bfloat16); M: the metric
-// type in registers (float or __nv_bfloat162).  G = 1 or 2 lane groups.
-template <class E, class M, int G>
-__global__ void __launch_bounds__(128)
-    probe6_full_kernel(const E* __restrict__ g2s, const E* __restrict__ g2p,
-                       const E* __restrict__ a0, const E* __restrict__ b0,
-                       E* __restrict__ aout, E* __restrict__ bout, int n,
-                       int steps) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+// R: a thread's rows (P6Rows<E, P>, P lanes a thread); G = 1 or 2 lane
+// groups.  n lanes (bf16: lanes of each group), a block a tile of 32 P.
+template <class R, int G, int P>
+__global__ void __launch_bounds__(2 * kP6Warp, G == 1 ? kP6MinBlocksF32 : 1)
+    probe6_pair_kernel(const typename R::Elem* __restrict__ g2s,
+                       const typename R::Elem* __restrict__ g2p,
+                       const typename R::Elem* __restrict__ a0,
+                       const typename R::Elem* __restrict__ b0,
+                       typename R::Elem* __restrict__ aout, typename R::Elem* __restrict__ bout,
+                       int n, int steps) {
+  const int h = (blockIdx.x * kP6Warp + threadIdx.x % kP6Warp) * P;
   if (h >= n) return;
-  const size_t ns = (size_t)n;
-  const size_t row = G * ns;  // one gamma row of every group
-  const size_t mg = 8 * ns;   // group stride of the metric arrays
-  M a[8], b[8];
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    a[s] = load_m(a0 + s * ns + h, mg);
-    b[s] = load_m(b0 + s * ns + h, mg);
-  }
-  for (int i = 0; i < steps; ++i) {
-    const size_t ra = (size_t)i * 2 * row + h;
-    const size_t rb = (size_t)(steps - 1 - i) * 2 * row + h;
-    probe6_acs<false>(a, load_m(g2s + ra, ns), load_m(g2p + ra, ns),
-                      load_m(g2s + ra + row, ns), load_m(g2p + ra + row, ns));
-    probe6_acs<true>(b, load_m(g2s + rb, ns), load_m(g2p + rb, ns),
-                     load_m(g2s + rb + row, ns), load_m(g2p + rb + row, ns));
-  }
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    store_m(aout + s * ns + h, mg, a[s]);
-    store_m(bout + s * ns + h, mg, b[s]);
-  }
+  if (threadIdx.x >= kP6Warp)  // one chain a warp
+    p6_chain<true, R, G>(g2s, g2p, b0, bout, (size_t)n, steps, (size_t)h);
+  else
+    p6_chain<false, R, G>(g2s, g2p, a0, aout, (size_t)n, steps, (size_t)h);
 }
 
 // make_skel: candidate j of state s is x[pred] + j (no gamma), then max and
@@ -370,22 +534,53 @@ __host__ __device__ constexpr int p7_cmb(int s, int k) {
   return t[s][k];
 }
 
-template <class M>
-__device__ __forceinline__ void p7_step(M a[8], M g0, M g1, M g01) {
-  M n[8];
-  unroll<0, 8>([&](auto s_) {
-    constexpr int S = decltype(s_)::value;
-    M c[2];
-    unroll<0, 2>([&](auto k_) {
-      constexpr int K = decltype(k_)::value;
-      constexpr int C = p7_cmb(S, K);
-      const M v = a[p7_src(S, K)];
-      c[K] = C == 0 ? v : add(v, C == 1 ? g0 : (C == 2 ? g1 : g01));
-    });
-    n[S] = mx(c[0], c[1]);
-  });
-  copy8(n, a);
+// Rows s and s ^ 1 take the same two candidates in swapped order, so from
+// the first step on they are equal (max is commutative on these finite
+// values).  The kernel keeps one metric a pair, r[p] = a[2p] = a[2p+1]:
+// the first step reads all eight start metrics, each later one is 4 states
+// x 2 candidates, each normalisation one subtract a pair: 16 adds and 8
+// maxes an iteration in either type.  nvcc merges the pairs of 8 states by
+// itself in f32, but not in bf16x2, whose __hmax2 is inline PTX that it does
+// not merge when the operands are swapped (12 adds, 8 subtracts and 16
+// HMNMX2 an iteration in cuobjdump -sass: 1.5x the instructions).
+template <int C, class M>
+__device__ __forceinline__ M p7_cand(M v, M g0, M g1, M g01) {
+  if constexpr (C == 0)
+    return v;
+  else if constexpr (C == 1)
+    return add(v, g0);
+  else if constexpr (C == 2)
+    return add(v, g1);
+  else
+    return add(v, g01);
 }
+
+// One radix-2 step into the pairs' metrics r from the eight state metrics
+// (PAIRS false: the first step) or from the pairs' (a[s] = r[s >> 1]),
+// each pair taking state 2p's candidates in its order.
+template <bool PAIRS, class M>
+__device__ __forceinline__ void p7_step(const M* x, M r[4], M g0, M g1, M g01) {
+  M n[4];
+  unroll<0, 4>([&](auto p_) {
+    constexpr int S = 2 * decltype(p_)::value;
+    constexpr int A = p7_src(S, 0), B = p7_src(S, 1);
+    n[S / 2] = mx(p7_cand<p7_cmb(S, 0)>(x[PAIRS ? A / 2 : A], g0, g1, g01),
+                  p7_cand<p7_cmb(S, 1)>(x[PAIRS ? B / 2 : B], g0, g1, g01));
+  });
+#pragma unroll
+  for (int p = 0; p < 4; ++p) r[p] = n[p];
+}
+
+template <class M>
+__device__ __forceinline__ void p7_norm(M r[4]) {
+  const M z = r[0];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) r[p] = sub(r[p], z);
+}
+
+// the iteration loop unrolled 4 times: its counter and branch are 3 of 27
+// instructions an iteration, 0.75 of 24.75 unrolled
+constexpr int kP7Unroll = 4;
 
 // g (2, n), a0 and out (8, n) of M elements (n lanes of f32, or n pairs of
 // bf16 lanes).
@@ -396,25 +591,43 @@ __global__ void __launch_bounds__(128)
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
   const size_t ns = (size_t)n;
+  if (iters <= 0) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) out[s * ns + t] = a0[s * ns + t];
+    return;
+  }
   const M g0 = g[t], g1 = g[ns + t];
   const M g01 = add(g0, g1);
-  M a[8];
+  M a[8], r[4];
 #pragma unroll
   for (int s = 0; s < 8; ++s) a[s] = a0[s * ns + t];
-  for (int i = 0; i < iters; ++i) {
-    p7_step(a, g0, g1, g01);
-    p7_step(a, g0, g1, g01);
-    const M z = a[0];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) a[s] = sub(a[s], z);
+  p7_step<false>(a, r, g0, g1, g01);
+  p7_step<true>(r, r, g0, g1, g01);
+  p7_norm(r);
+#pragma unroll kP7Unroll
+  for (int i = 1; i < iters; ++i) {
+    p7_step<true>(r, r, g0, g1, g01);
+    p7_step<true>(r, r, g0, g1, g01);
+    p7_norm(r);
   }
 #pragma unroll
-  for (int s = 0; s < 8; ++s) out[s * ns + t] = a[s];
+  for (int p = 0; p < 4; ++p) out[2 * p * ns + t] = out[(2 * p + 1) * ns + t] = r[p];
 }
 
 constexpr int kThreads = 128;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// One block a tile.
+template <class E, int G, int P>
+int probe6_launch(const E* g2s, const E* g2p, const E* a0, const E* b0, E* aout, E* bout,
+                  int n, int steps, void* stream) {
+  using R = P6Rows<E, P>;
+  const int tiles = (n + kP6Warp * P - 1) / (kP6Warp * P);
+  probe6_pair_kernel<R, G, P><<<tiles, 2 * kP6Warp, 0, (cudaStream_t)stream>>>(
+      g2s, g2p, a0, b0, aout, bout, n, steps);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -455,21 +668,23 @@ extern "C" int probe6_full(const float* g2s, const float* g2p, const float* a0,
                            const float* b0, float* aout, float* bout, int n,
                            int steps, void* stream) {
   if (n <= 0) return 0;
-  probe6_full_kernel<float, float, 1><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      g2s, g2p, a0, b0, aout, bout, n, steps);
-  return (int)cudaGetLastError();
+  return probe6_launch<float, 1, 1>(g2s, g2p, a0, b0, aout, bout, n, steps, stream);
 }
 
-// h: lanes per group (one thread each, both groups packed)
+// h: lanes per group, both groups packed in one __nv_bfloat162 a lane; two
+// lanes a thread where h is even and every array starts on a 4-byte
+// boundary (so each 32-bit word is aligned), else one
 extern "C" int probe6_bf16(const __nv_bfloat16* g2s, const __nv_bfloat16* g2p,
                            const __nv_bfloat16* a0, const __nv_bfloat16* b0,
                            __nv_bfloat16* aout, __nv_bfloat16* bout, int h,
                            int steps, void* stream) {
   if (h <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  probe6_full_kernel<__nv_bfloat16, __nv_bfloat162, 2><<<blocks_for(h), kThreads, 0, st>>>(
-      g2s, g2p, a0, b0, aout, bout, h, steps);
-  return (int)cudaGetLastError();
+  const uintptr_t odd = (uintptr_t)g2s | (uintptr_t)g2p | (uintptr_t)a0 | (uintptr_t)b0 |
+                        (uintptr_t)aout | (uintptr_t)bout;
+  if (h % 2 == 0 && odd % 4 == 0)
+    return probe6_launch<__nv_bfloat16, 2, 2>(g2s, g2p, a0, b0, aout, bout, h, steps,
+                                              stream);
+  return probe6_launch<__nv_bfloat16, 2, 1>(g2s, g2p, a0, b0, aout, bout, h, steps, stream);
 }
 
 extern "C" int probe6_skel(const float* a0, const float* b0, float* aout,

@@ -407,8 +407,17 @@ def test_probe_empty_matches_plain(cuda_device, threads, smem):
     np.testing.assert_array_equal(got[0].cpu().numpy(), x[0].cpu().numpy())
 
 
-def test_probe6_kernels_match_plain(cuda_device):
-    n, steps = 6000, 72
+# (f32 lanes, bf16 lanes a group, steps, bf16 arrays starting 2 bytes
+# into their storage): the probes' step count, h even (two lanes a thread);
+# then thousands of tiles, ragged, with a step count that is not a multiple
+# of the gamma ring and odd (the middle step read by both chains at once), h
+# odd (one lane a thread) and h even; last h even on contiguous views that
+# are not 4-byte aligned (one lane a thread, 16-bit reads)
+@pytest.mark.parametrize("n,h,steps,shifted", [(6000, 3000, 72, False),
+                                               (70001, 35001, 11, False),
+                                               (300, 70000, 11, False),
+                                               (300, 3000, 72, True)])
+def test_probe6_kernels_match_plain(cuda_device, n, h, steps, shifted):
     g2s, g2p = _rand(cuda_device, (steps, 2, n), 4), _rand(cuda_device, (steps, 2, n), 5)
     a0, b0 = _rand(cuda_device, (8, n), 6, 1.0), _rand(cuda_device, (8, n), 7, 1.0)
     for got, want in zip(probes.probe6_full(g2s, g2p, a0, b0),
@@ -417,18 +426,29 @@ def test_probe6_kernels_match_plain(cuda_device):
     for got, want in zip(probes.probe6_skel(a0, b0, steps),
                          probes.probe6_skel_ref(a0, b0, steps)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)
-    h = n // 2
     g16 = [_rand(cuda_device, (steps, 2, 2, h), 8 + i, dtype=torch.bfloat16) for i in range(2)]
     m16 = [_rand(cuda_device, (16, h), 10 + i, 1.0, torch.bfloat16) for i in range(2)]
+    if shifted:
+        def shift(x):
+            buf = x.new_empty(x.numel() + 1)
+            buf[1:].copy_(x.flatten())
+            return buf[1:].view(x.shape)
+
+        g16, m16 = [shift(x) for x in g16], [shift(x) for x in m16]
+        assert all(x.is_contiguous() and x.data_ptr() % 4 for x in g16 + m16)
     for got, want in zip(probes.probe6_bf16(*g16, *m16), probes.probe6_bf16_ref(*g16, *m16)):
         np.testing.assert_array_equal(got.float().cpu().numpy(), want.float().cpu().numpy())
 
 
+# a lane count that is a multiple of the block, then one that is not, at
+# iters 1 (the first step from all eight metrics, then one of the pairs) and
+# 0 (the start metrics out as they came in)
+@pytest.mark.parametrize("n,iters", [(4096, 256), (4100, 1), (4100, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_probe7_kernels_match_plain(cuda_device, dtype):
-    g = _rand(cuda_device, (2, 4096), 12, 0.5, dtype)
-    a0 = _rand(cuda_device, (8, 4096), 13, 1.0, dtype)
-    got, want = probes.probe7(g, a0, 256), probes.probe7_ref(g, a0, 256)
+def test_probe7_kernels_match_plain(cuda_device, dtype, n, iters):
+    g = _rand(cuda_device, (2, n), 12, 0.5, dtype)
+    a0 = _rand(cuda_device, (8, n), 13, 1.0, dtype)
+    got, want = probes.probe7(g, a0, iters), probes.probe7_ref(g, a0, iters)
     torch.cuda.synchronize()
     if dtype == torch.float32:
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=0)

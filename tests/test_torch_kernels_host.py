@@ -88,6 +88,8 @@ static inline int cudaGetLastError() {
 template <class T>
 static inline int cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
 static inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+template <class T>
+static inline T __ldg(const T* p) { return *p; }
 template <class F>
 static void host_launch(dim3 grid, dim3 block, F kernel) {
   gridDim = grid;
@@ -709,8 +711,13 @@ def test_probe_empty_source_matches_plain(host_kernels, threads, smem):
     _equal(out[0], probes.probe_empty_ref([x], 8)[0])
 
 
-def test_probe6_sources_match_plain(host_kernels):
-    n, steps = 21, 6
+# (f32 lanes, bf16 lanes a group, steps): one ragged tile of each kernel's
+# block, odd h (one lane a thread), an odd step count (the middle step read
+# by both chains at once); then several tiles (f32 10, bf16 18), even h (two
+# lanes a thread, 32-bit words); neither step count a multiple of the gamma
+# ring (kP6Depth 3)
+@pytest.mark.parametrize("n,h,steps", [(21, 11, 7), (300, 1100, 10)])
+def test_probe6_sources_match_plain(host_kernels, n, h, steps):
     g2s, g2p = _probe_inputs((steps, 2, n), 5), _probe_inputs((steps, 2, n), 6)
     a0, b0 = _probe_inputs((8, n), 7, 1.0), _probe_inputs((8, n), 8, 1.0)
     aout, bout = a0.new_empty((8, n)), b0.new_empty((8, n))
@@ -720,7 +727,6 @@ def test_probe6_sources_match_plain(host_kernels):
     _run(host_kernels["probe6_skel"], a0, b0, aout, bout, n, steps)
     for got, want in zip((aout, bout), probes.probe6_skel_ref(a0, b0, steps)):
         _close(got, want)
-    h = 11
     g16 = [_probe_inputs((steps, 2, 2, h), 9 + i).to(torch.bfloat16) for i in range(2)]
     m16 = [_probe_inputs((16, h), 11 + i, 1.0).to(torch.bfloat16) for i in range(2)]
     out16 = [m.new_empty((16, h)) for m in m16]
@@ -729,9 +735,12 @@ def test_probe6_sources_match_plain(host_kernels):
         _equal(got, want)
 
 
+# iters 0 (the start metrics out as they came in), 1 (the first step, from
+# all eight metrics, then one step of the pairs) and 12
+@pytest.mark.parametrize("iters", [12, 1, 0])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_probe7_source_matches_plain(host_kernels, dtype):
-    n, iters = 18, 12
+def test_probe7_source_matches_plain(host_kernels, dtype, iters):
+    n = 18
     g = _probe_inputs((2, n), 13, 0.5).to(dtype)
     a0 = _probe_inputs((8, n), 14, 1.0).to(dtype)
     out = a0.new_empty((8, n))

@@ -243,6 +243,23 @@ def test_probe7_plain_matches_pallas_body(recorder, dtype, rows):
         _bars16(got, jnp.asarray(want).reshape(8, -1))
 
 
+def test_probe7_plain_pairs_equal_from_the_first_step():
+    """What ``csrc/probe_acs.cu``'s probe 7 kernel rests on: states s and
+    s ^ 1 take the same two candidates in swapped order, so the plain
+    version's rows 2p and 2p + 1 are equal after one step, and after one and
+    three iterations, on ``check_inputs``' seeded inputs, f32 and bf16."""
+    from srsran_4g_tpu_torch.tools import turbo_probe7
+
+    for dtype, rows in ((torch.float32, 8), (torch.bfloat16, 16)):
+        g, a0 = turbo_probe7.check_inputs(dtype, rows, 32, device="cpu")
+        assert not torch.equal(a0[0::2], a0[1::2])
+        combos = torch.stack([torch.zeros_like(g[0]), g[0], g[1], g[0] + g[1]])
+        c = a0[torch.as_tensor(probes.A_SRC)] + combos[torch.as_tensor(probes.A_CMB)]
+        step = torch.maximum(c[:, 0], c[:, 1])
+        for a in (step, probes.probe7_ref(g, a0, 1), probes.probe7_ref(g, a0, 3)):
+            assert torch.equal(a[0::2], a[1::2])
+
+
 # --- the wrappers' checks ------------------------------------------------------
 
 
