@@ -34,7 +34,11 @@ read just after:
 - the probes: every H100 micro-benchmark of ``srsran_4g_tpu_torch/tools``
   (the ports of the TPU probes tools/turbo_probe{2,3,6,7}.py) at the TPU
   probes' shapes, through their ``measure`` entry points, each kernel then
-  held against its plain version;
+  held against its plain version; every probe whose bound falls below the
+  card's launch floor (one block, back to back) bounded by that floor
+  (``launch_floor_ms``, ``bound_with_launch_ms``); probe 2's ``full`` and
+  ``astore`` with their launch geometry (lanes a block, shared bytes,
+  rounds) and their loops' SASS;
 - the downlink control path from samples: 128 captures of a 100 PRB
   subframe 0 (cell 301, CFI 1, Ng 1) carrying a MIB, two PHICH ACKs, a
   format-1A DCI for a C-RNTI granting the whole band at MCS 28 and one for
@@ -173,7 +177,11 @@ ones), and ``map_fused16`` also at the uplink's and the PMCH's shapes
 (L = 192 and 184, timed, their launches per decode in its entry of the
 kernels line); each kernel's launch geometry is logged beside its build's
 registers and spills, and given in the kernels line, with the SASS opcodes
-of probe 7's loop (``cuobjdump -sass``).  The decodes under ``bf16``,
+of probe 7's loop (``cuobjdump -sass``) and the loads, stores, adds and
+maxes of probe 2's ``full`` and ``astore`` loops (the script fails if
+``astore``'s loop holds no shared-memory store, ``STS``, or any global
+one, ``STG``: its ring of alpha, which nothing reads, must stay in shared
+memory and must not be dropped).  The decodes under ``bf16``,
 ``v7`` and ``v8`` are profiled for their device time.
 
 Output (stdout): the card's name and power limit, the build and check
@@ -206,7 +214,7 @@ from srsran_4g_tpu_torch.tools import clock_ms, dp_evidence, profile_components,
 from srsran_4g_tpu_torch.tools.turbo_kernel_bench import (
     ADD_PER_SM_CLOCK, BF16_WRAPPERS, CLOCK_HZ, DISPATCH_PER_SM_CLOCK, EXACT,
     MAX_PER_SM_CLOCK, PATH_KERNELS, PATH_OF, ROUTES, SM_COUNT, bound, gamma_inputs,
-    kernel_calls, op_ms, work)
+    PEAK_BYTES_PER_S, kernel_calls, op_ms, work)
 
 # The bounds' rates (the H100 SXM's HBM3 bandwidth, the CUDA cores' add, max
 # and dispatch rates at 132 SMs and 1.98 GHz), ``work``, the route table
@@ -867,9 +875,12 @@ def probes_phase(card: str) -> list[dict]:
     shapes through the tools' ``measure`` entry points (each kernel's ms from
     CUDA events), the launch counts of that run, then each kernel against
     its plain version on the same inputs (f32 atol 1e-3, bf16 the 16-bit
-    bars), and the card's launch floor (the empty kernel on one block, back
-    to back), which bounds ``probe_empty``.  Returns the probes' entries of
-    the kernels line."""
+    bars; probe 2's ``full`` and ``astore`` exactly), and the card's launch
+    floor (the empty kernel on one block, back to back), which bounds every
+    probe whose byte or op bound falls below it (``probe_empty``, probe 2's
+    ``empty``, ``addchain`` and ``addpar``).  Returns the probes' entries of
+    the kernels line, probe 2's ``full`` and ``astore`` with the launch
+    geometry of their measured run (``probes.probe2_launched``)."""
     from srsran_4g_tpu_torch.ops.cuda import probes
     from srsran_4g_tpu_torch.tools import turbo_probe2 as p2
     from srsran_4g_tpu_torch.tools import turbo_probe3 as p3
@@ -880,6 +891,7 @@ def probes_phase(card: str) -> list[dict]:
     reset_counts()
     log(f"[{card}] probe 2 (N={p2.N} lanes, {p2.N_STEPS} radix-4 steps):")
     r2 = p2.measure(probes.PROBE2_VARIANTS)
+    p2_geometry = {f"probe2_{v}": probes.probe2_launched[v] for v in ("full", "astore")}
     log(f"[{card}] probe 3 (N={p3.N} lanes):")
     r3 = p3.measure()
     log(f"[{card}] probe 6 (N={p6.N} lanes, {p6.STEPS} radix-4 steps):")
@@ -902,6 +914,8 @@ def probes_phase(card: str) -> list[dict]:
         if name.startswith("probe2_") or name == "probe3_empty":
             pairs = [(g[0], w[0]) for g, w in pairs]  # row 0 is the output
         err = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+        if name in PROBE2_SWEEPS and err:
+            raise AssertionError(f"{name} kernel vs plain: max |diff| {err}, not equal")
         if not np.isfinite(err):
             raise AssertionError(f"{name} kernel vs plain: not finite")
         # the outputs must be far from 0 for the tolerance to mean anything
@@ -993,13 +1007,24 @@ def probes_phase(card: str) -> list[dict]:
         extra = {k: r[k] for k in ("gelem_s", "ms_tpu_default", "gelem_s_tpu_default")
                  if k in r}
         if name == "probe3_empty":
-            # the launch, not its 8 bytes a lane, bounds this kernel
             extra = dict(host_ms_per_launch=r3["host_ms_per_launch"],
-                         configs={k: v for k, v in r3.items() if k.startswith("empty")},
-                         launch_floor_ms=floor_ms,
-                         bound_with_launch_ms=max(bound_ms, floor_ms))
-            log(f"[{card}] {name}: bound with the launch floor {max(bound_ms, floor_ms):.4f} "
-                f"ms, {max(bound_ms, floor_ms) / r['ms']:.3f} of it")
+                         configs={k: v for k, v in r3.items() if k.startswith("empty")})
+        if bound_ms < floor_ms:
+            # the launch, not its bytes or ops, bounds this kernel
+            extra.update(launch_floor_ms=floor_ms, bound_with_launch_ms=floor_ms)
+            log(f"[{card}] {name}: bound with the launch floor {floor_ms:.4f} ms, "
+                f"{floor_ms / r['ms']:.3f} of it")
+        if name in p2_geometry:  # as the measured run launched it
+            geo = p2_geometry[name]
+            extra.update(geometry=dict(geo._asdict(), threads=geo.lanes))
+            log(f"[{card}] {name} geometry: {extra['geometry']}")
+        if name == "probe2_astore":
+            # what a store of alpha (8 f32 a lane, before every step) to
+            # device memory would write, against which the ring on chip is
+            # read; a figure of the log, not a measurement
+            store = 32 * r["n"] * r["n_steps"]
+            log(f"[{card}] {name}: its {store} B of stores would take "
+                f"{store / PEAK_BYTES_PER_S * 1e3:.4f} ms at HBM's rate; on chip here")
         kernels.append(dict(
             name=name, route="cuda", source=f"srsran_4g_tpu_torch/csrc/{source}",
             replaces=probes.REPLACES[name], path="probes", shapes=dict(
@@ -1007,6 +1032,44 @@ def probes_phase(card: str) -> list[dict]:
             launches=counts[name], max_abs_err=err, ms=r["ms"], plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, library_ms=None, **extra))
     return kernels
+
+
+# probe 2's sweep bodies, by their kernels' names in csrc/probe_acs.cu
+PROBE2_SWEEPS = {"probe2_full": "probe2_full_kernel",
+                 "probe2_astore": "probe2_astore_kernel"}
+
+
+def probe2_sass(lib: Path, build_log: str) -> dict[str, dict]:
+    """The loops of probe 2's ``full`` and ``astore`` kernels in ``lib``
+    (``sass_loops``), each loop's global loads, shared and global stores,
+    adds and maxes logged, with the registers and spills that ``build_log``
+    (the build's ``-Xptxas -v`` log) gives; raises if ``astore``'s loop of
+    ACS steps holds no ``STS`` or any ``STG``.  {name: {"loops": [...],
+    **usage}}."""
+    from srsran_4g_tpu_torch.ops.cuda import build
+
+    res = {}
+    for name, pattern in PROBE2_SWEEPS.items():
+        loops = []
+        for loop in sass_loops(lib, pattern):
+            kinds = collections.Counter()
+            for op, k in loop.items():
+                kinds[op.split(".")[0]] += k
+            loops.append(dict(instructions=sum(loop.values()), **{
+                k: kinds[k] for k in ("LDG", "STS", "STG", "FADD", "FMNMX")}))
+            log(f"{name} loop SASS: {sum(loop.values())} instructions; "
+                + ", ".join(f"{op} {n}" for op, n in sorted(loop.items())))
+        steps = [x for x in loops if x["FADD"] and x["FMNMX"]]  # the ACS's loop
+        if not steps:
+            raise AssertionError(f"{name}: no loop of ACS steps in its SASS: {loops}")
+        if name == "probe2_astore" and (not all(x["STS"] for x in steps)
+                                        or any(x["STG"] for x in steps)):
+            raise AssertionError(f"{name}: its loop must store alpha to shared memory "
+                                 f"(STS) and never to device memory (STG): {steps}")
+        usage = build.kernel_usage(build_log, pattern)
+        log(f"{name}: {loops}, {usage}")
+        res[name] = dict(loops=loops, **usage)
+    return res
 
 
 def sass_loops(lib: Path, *patterns: str) -> list[collections.Counter]:
@@ -3709,6 +3772,10 @@ def main() -> None:
         for loop in sass_loops(libs["probe_acs"], pattern):
             log(f"probe7 {key} loop SASS: {sum(loop.values())} instructions; "
                 + ", ".join(f"{op} {n}" for op, n in sorted(loop.items())))
+    # probe 2's full and astore loops: the gamma loads ahead, astore's ring
+    # in shared memory (raises otherwise)
+    p2_sass = probe2_sass(libs["probe_acs"],
+                          libs["probe_acs"].with_suffix(".log").read_text())
 
     # ---- each kernel against its plain version, on the card ---------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3790,6 +3857,9 @@ def main() -> None:
     default_route = phase(mcs23_path, dev, gen, card, kern)
     phase(dl_path, dev, gen, card)
     probe_kernels = phase(probes_phase, card)
+    for entry in probe_kernels:
+        if entry["name"] in p2_sass:
+            entry["sass"] = p2_sass[entry["name"]]
     phase(control_path, dev, gen, card)
     new_paths = {"ul_path": (phase(ul_path, dev, gen, card), UL_CBS, UL_K, UL_L),
                  "mbsfn_path": (phase(mbsfn_path, dev, gen, card), PMCH_CBS, PMCH_K, PMCH_L)}

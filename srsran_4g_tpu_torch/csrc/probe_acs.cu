@@ -18,25 +18,27 @@
 // lanes ([row][lane] layouts).  In bf16x2 a thread's __nv_bfloat162 holds
 // two lanes or two lane groups (__hadd2, __hsub2, __hmax2; each half rounds
 // to nearest even, as torch and XLA round each bf16 op).  Probe 2 and probe
-// 6's skeleton run one thread a lane; probe 6's pair splits its chains
-// over two warps and fetches its gammas ahead, and probe 7 keeps one metric
-// a state pair (each at its section).  Where the TPU body kept a store in
-// VMEM scratch (probe 2's astore), the store is a device-memory buffer, as
-// in turbo_fused.cu.  Nothing here is forced against the compiler: a body
-// whose work nvcc removes (fixedrow's loop-invariant loads, the unread
-// states of addchain, addpar and load1x) is reported as folded, as the TPU
-// probe measured what Mosaic kept.
+// 6's skeleton run one thread a lane; probe 2's full and astore bodies and
+// probe 6's pair fetch their gammas ahead, probe 6's pair splits its chains
+// over two warps, and probe 7 keeps one metric a state pair (each at its
+// section).  Where the TPU body kept a store in VMEM scratch (probe 2's
+// astore), the store is in shared memory, a ring a lane.  Nothing here is
+// forced against the compiler: a body whose work nvcc removes (fixedrow's
+// loop-invariant loads, the unread states of addchain, addpar and load1x)
+// is reported as folded, as the TPU probe measured what Mosaic kept.
 //
 // What bounds them on the H100: compute, but for probe 6's pair.  Every
 // probe reads a few bytes per trellis step of each lane and does 20-60
 // add/max/sub operations per step; at one operation per lane per cycle (132
 // SMs x 128 lanes x 1.98 GHz = 33.5 T op/s; two bf16 elements per bf16x2
 // instruction) the operations outweigh the bytes at 3.35 TB/s by 5-30x,
-// except probe 2's loadsonly, load1, load1x, empty and astore bodies, which
-// the bytes bound, and probe 6's pair, whose four gamma rows a step each
-// chain reads put its bytes just above its operations.
+// except probe 2's loadsonly, load1, load1x and empty bodies, which the
+// bytes bound, and probe 6's pair, whose four gamma rows a step each chain
+// reads put its bytes just above its operations.  The empty, addchain and
+// addpar bodies take less than a launch: the launch floor bounds them.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
@@ -134,14 +136,14 @@ enum Probe2 {
 };
 
 // gs, gp (rows, N) gamma rows (the probe passes one array as both), a0
-// (8, N); out (out_rows, N) gets row 0 only, as the TPU body writes it;
-// astore (store_rows, 8, N) is ASTORE's scratch.  n_steps radix-4 steps.
+// (8, N); out (out_rows, N) gets row 0 only, as the TPU body writes it.
+// n_steps radix-4 steps.  The bodies but FULL and ASTORE (probe2_full_kernel,
+// probe2_astore_kernel).
 template <int V>
 __global__ void __launch_bounds__(128)
     probe2_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
-                  const float* __restrict__ a0, float* __restrict__ out,
-                  float* __restrict__ astore, int n, int n_steps,
-                  int store_rows) {
+                  const float* __restrict__ a0, float* __restrict__ out, int n,
+                  int n_steps) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   const size_t ns = (size_t)n;
@@ -150,17 +152,7 @@ __global__ void __launch_bounds__(128)
   float a[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) a[s] = a0[s * ns + lane];
-  if constexpr (V == FULL || V == ASTORE) {
-    for (int i = 0; i < n_steps; ++i) {
-      if constexpr (V == ASTORE) {
-        float* st = astore + (size_t)(i % store_rows) * 8 * ns + lane;
-#pragma unroll
-        for (int s = 0; s < 8; ++s) st[s * ns] = a[s];
-      }
-      const size_t r = (size_t)(2 * i) * ns;
-      probe2_acs(a, gsl[r], gpl[r], gsl[r + ns], gpl[r + ns]);
-    }
-  } else if constexpr (V == FIXEDROW) {
+  if constexpr (V == FIXEDROW) {
     for (int i = 0; i < n_steps; ++i)
       probe2_acs(a, gsl[0], gpl[0], gsl[ns], gpl[ns]);
   } else if constexpr (V == BLOCK8) {
@@ -226,6 +218,188 @@ __global__ void __launch_bounds__(128)
     }
   }
   out[lane] = a[0];
+}
+
+// ---- probe 2's full and astore bodies: the sweep, gammas fetched ahead ----
+// The TPU bodies run a lane's steps as one serial chain over gamma rows held
+// in VMEM; astore also writes alpha, before every step, into a VMEM scratch
+// of (WIN/2, 8, TILE) f32 that every grid step reuses and nothing reads.  On
+// Hopper, one thread a lane, as the other bodies, with the gammas off the
+// critical path, fetched D steps ahead of the step that adds them:
+// - full keeps them in a register ring of D + 1 steps (the loop unrolled
+//   D + 1 times, so that every slot is a register), in blocks of one warp:
+//   the probe's 2,704 blocks put 20 or 21 warps on each SM, all resident at
+//   once (1.03x the mean, where 128-lane blocks put 6 blocks, 24 warps, on
+//   16 SMs against a mean of 5.12);
+// - astore keeps its store on chip, as on the TPU: each lane's ring of
+//   store_rows rows of its 8 metrics in dynamic shared memory, row
+//   i % store_rows before step i, as two 16-byte stores ([row][half][lane]
+//   float4: a warp stores 512 contiguous bytes, free of bank conflicts).
+//   That leaves about 110 lanes an SM, one warp a scheduler, too few to
+//   wait out a load each: the gammas go through cp.async into shared
+//   stages (one commit group a step, D + 1 stages of a float4 a lane), and
+//   step i + 1's are read back while step i's arithmetic runs.  A lane
+//   takes 32 * store_rows + 16 * (D + 1) bytes, 2,000 at the probe's 56
+//   rows, so at most 116 lanes fit an SM at a time.  The lanes
+//   run in tiles of blockDim.x, block b taking tiles b, b + gridDim.x, ...
+//   (ops/cuda/probes.probe2_geometry: 110 lanes in 787 tiles on 132 blocks,
+//   one an SM, 6 tiles each, at the probe's shape); a block's fetches run
+//   on across its tiles and the next tile's alpha(0) is loaded while this
+//   tile runs, so a block waits on memory once, where a block a tile would
+//   wait at every tile.
+// The arithmetic is probe2_acs, so the outputs equal probe2_kernel's.
+// Full's blocks are one warp, and at most 97 registers a thread let 21
+// blocks an SM be resident at once.
+constexpr int kP2FullLanes = 32, kP2FullMinBlocks = 21, kP2FullDepth = 5;
+constexpr int kP2StoreDepth = 12, kP2MaxLanes = 256;
+constexpr long long kMaxSmem = 232448;  // an H100 block's dynamic shared memory
+
+// The dynamic shared bytes that astore's block of `lanes` lanes indexes:
+// the gamma stages (D + 1 float4 a lane) and the ring (store_rows rows of
+// 32 B a lane).
+inline long long p2_smem_need(int store_rows, int lanes) {
+  return (16LL * (kP2StoreDepth + 1) + 32LL * store_rows) * lanes;
+}
+
+// One step's gamma rows: (gs row 2i, gp row 2i, gs row 2i+1, gp row 2i+1).
+struct P2Rows {
+  float q[4];
+  __device__ __forceinline__ void load(const float* s, const float* p, size_t at,
+                                       size_t ns) {
+    q[0] = __ldg(s + at);
+    q[1] = __ldg(p + at);
+    q[2] = __ldg(s + (at + ns));
+    q[3] = __ldg(p + (at + ns));
+  }
+};
+
+// full: one lane a thread, blocks of kP2FullLanes; D: the ring of gamma
+// rows, in steps.
+template <int D>
+__global__ void __launch_bounds__(kP2FullLanes, kP2FullMinBlocks)
+    probe2_full_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
+                       const float* __restrict__ a0, float* __restrict__ out, int n,
+                       int n_steps) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  const size_t ns = (size_t)n;
+  const float* s = gs + lane;
+  const float* p = gp + lane;
+  float a[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = a0[k * ns + lane];
+  if (n_steps > 0) {
+    // D + 1 slots: step i fetches step i + D into the slot step i - 1 read,
+    // so no slot is read after it is refilled and every slot keeps its
+    // register around the loop (no move waiting on a load)
+    constexpr int R = D + 1;
+    const int last = n_steps - 1;
+    const size_t rs = 2 * ns;  // one step's rows
+    P2Rows ring[R];
+    unroll<0, D>([&](auto v_) {
+      constexpr int V = decltype(v_)::value;
+      if (V <= last) ring[V].load(s, p, V * rs, ns);
+    });
+    const float* fs = s + D * rs;  // step i + D's rows
+    const float* fp = p + D * rs;
+    const auto step = [&](auto u_, bool fetch) {
+      constexpr int U = decltype(u_)::value % R;
+      if (fetch) {
+        ring[(U + D) % R].load(fs, fp, 0, ns);
+        fs += rs;
+        fp += rs;
+      }
+      probe2_acs(a, ring[U].q[0], ring[U].q[1], ring[U].q[2], ring[U].q[3]);
+    };
+    // the steps whose step + D exists, in whole turns of the ring (every
+    // fetch unconditional: a fetch under a branch joins into a register move
+    // that waits for the load), then the rest, once
+    const int fetching = n_steps > D ? n_steps - D : 0;
+    const int whole = fetching - fetching % R;
+    for (int i0 = 0; i0 < whole; i0 += R)
+      unroll<0, R>([&](auto u_) { step(u_, true); });
+    unroll<0, R + D>([&](auto u_) {
+      constexpr int K = decltype(u_)::value;
+      if (whole + K < n_steps) step(u_, whole + K < fetching);
+    });
+  }
+  out[lane] = a[0];
+}
+
+// astore; D: the steps fetched ahead (at least 2).  Dynamic shared memory:
+// D + 1 gamma stages of blockDim.x float4, then the ring of 2 * store_rows
+// * blockDim.x float4.  gridDim.x <= the tiles, and 2 * n_steps * n < 2^31
+// (the gamma offsets are 32-bit).
+template <int D>
+__global__ void __launch_bounds__(kP2MaxLanes, 1)
+    probe2_astore_kernel(const float* __restrict__ gs, const float* __restrict__ gp,
+                         const float* __restrict__ a0, float* __restrict__ out, int n,
+                         int n_steps, int store_rows) {
+  extern __shared__ float4 p2_smem[];
+  const int lanes = blockDim.x, stride = gridDim.x * lanes;  // to the block's next tile
+  int lane = blockIdx.x * lanes + threadIdx.x;               // in the tile being computed
+  const auto clamp = [&](int l) { return l < n ? l : n - 1; };  // the ragged last tile
+  float4* const stage0 = p2_smem + threadIdx.x;  // stage k at stage0[k * lanes]
+  float4* const stage_end = stage0 + (D + 1) * lanes;
+  float4* const ring = stage_end;  // row r, half h at ring[(2r + h) * lanes]
+  float4* const ring_end = ring + 2 * lanes * store_rows;
+  // the fetch cursor, D steps ahead: its step, its tile's lane, and its
+  // rows' offset in gs and gp.  Past the block's last tile it runs on over
+  // lane n - 1's rows, which nothing reads.
+  int fi = 0, flane = lane, at = clamp(lane);
+  float4* fslot = stage0;
+  const auto fetch = [&] {  // one commit group a step
+    float* d = reinterpret_cast<float*>(fslot);
+    __pipeline_memcpy_async(d, gs + at, sizeof(float));
+    __pipeline_memcpy_async(d + 1, gp + at, sizeof(float));
+    __pipeline_memcpy_async(d + 2, gs + (at + n), sizeof(float));
+    __pipeline_memcpy_async(d + 3, gp + (at + n), sizeof(float));
+    __pipeline_commit();
+    at += 2 * n;
+    if (++fi == n_steps) {
+      fi = 0;
+      flane += stride;
+      at = clamp(flane);
+    }
+    fslot += lanes;
+    if (fslot == stage_end) fslot = stage0;
+  };
+  // a tile's alpha(0): this one's, and the next one's loaded ahead
+  float a[8], nx[8];
+  const auto load_a0 = [&](float x[8], int l) {
+    const float* src = a0 + clamp(l);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) x[s] = src[(size_t)s * n];
+  };
+  load_a0(a, lane);
+  load_a0(nx, lane + stride);
+  if (n_steps > 0)
+    for (int k = 0; k < D; ++k) fetch();
+  __pipeline_wait_prior(D - 1);  // step 0's group
+  float4 q = stage0[0];
+  const float4* rslot = stage0 + lanes;  // step i + 1's stage
+  float4* row = ring;                    // ring row i % store_rows
+  while (lane < n) {                     // the block's tiles
+    for (int i = 0; i < n_steps; ++i) {
+      row[0] = float4{a[0], a[1], a[2], a[3]};
+      row[lanes] = float4{a[4], a[5], a[6], a[7]};
+      row += 2 * lanes;
+      if (row == ring_end) row = ring;
+      fetch();
+      __pipeline_wait_prior(D - 1);  // step i + 1's group, committed D - 1 groups ago
+      const float4 qn = *rslot;
+      rslot += lanes;
+      if (rslot == stage_end) rslot = stage0;
+      probe2_acs(a, q.x, q.y, q.z, q.w);
+      q = qn;
+    }
+    out[lane] = a[0];
+    lane += stride;
+    row = ring;
+    copy8(nx, a);
+    load_a0(nx, lane + stride);
+  }
+  __pipeline_wait_prior(0);  // no copy outlives the block
 }
 
 // ---- probe 6: turbo_probe6.py's v5 radix-4 pair --------------------------
@@ -632,26 +806,53 @@ int probe6_launch(const E* g2s, const E* g2p, const E* a0, const E* b0, E* aout,
 }  // namespace
 
 // variant: the Probe2 enum (0 full ... 11 load1x, the order of
-// ops/cuda/probes.PROBE2_VARIANTS).
-extern "C" int probe2(const float* gs, const float* gp, const float* a0,
-                      float* out, float* astore, int n, int n_steps,
-                      int store_rows, int variant, void* stream) {
-  if (n <= 0) return 0;
+// ops/cuda/probes.PROBE2_VARIANTS); lanes, smem, blocks: the launch that
+// ops/cuda/probes.probe2_geometry gives, one thread a lane, lanes a tile:
+// a block a tile, but astore's blocks (1 to the tiles), which take the
+// tiles in turn.  Checked here only as far as the kernels need: lanes
+// within a body's launch bounds, astore's dynamic shared bytes holding its
+// gamma stages and rings and at most 232,448 (0 for the others), and
+// astore's 32-bit gamma offsets (2 * n_steps * n < 2^31); also at n = 0,
+// so a caller can ask whether a launch is taken.
+extern "C" int probe2(const float* gs, const float* gp, const float* a0, float* out,
+                      int n, int n_steps, int store_rows, int variant, int lanes,
+                      int smem, int blocks, void* stream) {
+  if (n < 0 || n_steps < 0 || store_rows < 1 || variant < FULL || variant > LOAD1X)
+    return (int)cudaErrorInvalidValue;
+  const bool store = variant == ASTORE;
+  const long long need = store ? p2_smem_need(store_rows, lanes) : 0;
+  const int most = variant == FULL ? kP2FullLanes : store ? kP2MaxLanes : kThreads;
+  const int tiles = lanes > 0 ? (n + lanes - 1) / lanes : 0;
+  if (lanes < 1 || lanes > most || smem < need ||
+      smem > (store ? kMaxSmem : 0) || blocks < 1 ||
+      (n > 0 && (store ? blocks > tiles : blocks != tiles)) ||
+      (store && 2LL * n_steps * n > 0x7fffffffLL))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = blocks_for(n);
   switch (variant) {
-#define PROBE2_CASE(V)                                                    \
-  case V:                                                                 \
-    probe2_kernel<V><<<blocks, kThreads, 0, st>>>(gs, gp, a0, out, astore, \
-                                                  n, n_steps, store_rows); \
+    case FULL:
+      probe2_full_kernel<kP2FullDepth><<<blocks, lanes, 0, st>>>(gs, gp, a0, out, n,
+                                                                 n_steps);
+      break;
+    case ASTORE: {
+      const cudaError_t err =
+          cudaFuncSetAttribute(probe2_astore_kernel<kP2StoreDepth>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      probe2_astore_kernel<kP2StoreDepth><<<blocks, lanes, smem, st>>>(
+          gs, gp, a0, out, n, n_steps, store_rows);
+      break;
+    }
+#define PROBE2_CASE(V)                                                        \
+  case V:                                                                     \
+    probe2_kernel<V><<<blocks, lanes, 0, st>>>(gs, gp, a0, out, n, n_steps);    \
     break;
-    PROBE2_CASE(FULL)
     PROBE2_CASE(FIXEDROW)
     PROBE2_CASE(BLOCK8)
     PROBE2_CASE(LOADSONLY)
     PROBE2_CASE(ACSONLY)
     PROBE2_CASE(UNROLL4)
-    PROBE2_CASE(ASTORE)
     PROBE2_CASE(EMPTY)
     PROBE2_CASE(LOAD1)
     PROBE2_CASE(ADDCHAIN)

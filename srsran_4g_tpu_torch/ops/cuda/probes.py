@@ -12,6 +12,8 @@ probe kernel (names in ``KERNELS``).
 - ``probe2``: the radix-4 alpha sweep of ``turbo_probe2.py`` in twelve
   bodies (``PROBE2_VARIANTS``) that keep or drop its gamma loads, ACS
   arithmetic and alpha stores; output row 0 only, as the TPU body writes it.
+  ``astore`` keeps its alpha store in shared memory, a ring a lane, as the
+  TPU body kept it in VMEM; ``probe2_geometry`` gives each body's launch.
 - ``probe_empty``: ``turbo_probe3.py``'s empty kernel (row 0 of the first
   input to row 0 of the output) at a chosen block size and dynamic
   shared-memory request.
@@ -29,6 +31,7 @@ the bytes and operations each kernel's output needs, for its bound.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -274,12 +277,89 @@ def _check(name: str, tensors, dtype, shapes) -> bool:
     return True
 
 
+# the H100's largest dynamic shared memory a block may ask for (227 KB):
+# more than half an SM's 228 KB, so one block per SM
+ONE_BLOCK_PER_SM_SMEM = 232448
+# an H100 SM: its shared memory (228 KB, of which each resident block
+# reserves 1 KB), threads and blocks; the SM count of the H100 SXM
+SM_SMEM, BLOCK_RESERVED_SMEM, SM_THREADS, SM_BLOCKS, SMS = 233472, 1024, 2048, 32, 132
+# probe2's blocks (the launch bounds of csrc/probe_acs.cu's kernels, which
+# its entry checks): the ten bodies of probe2_kernel, full's (one warp) and
+# astore's largest; astore's gamma stages (kP2StoreDepth + 1 there), a
+# float4 a lane each, which the entry checks the shared bytes against
+PROBE2_THREADS, PROBE2_FULL_LANES, PROBE2_MAX_LANES = 128, 32, 256
+PROBE2_STORE_STAGES = 13
+
+
+class Probe2Geometry(NamedTuple):
+    lanes: int       # lanes a tile and a block, one thread each
+    smem_bytes: int  # dynamic shared memory a block: astore's gamma stages and ring
+    tiles: int       # ceil(N / lanes), the last one ragged
+    blocks: int      # the grid: block b takes tiles b, b + blocks, ...
+    per_sm: int      # blocks an SM holds at once (shared memory, threads, blocks)
+    rounds: int      # the most tiles a block takes
+
+
+def probe2_geometry(variant: str, n: int, store_rows: int, sms: int = SMS) -> Probe2Geometry:
+    """``probe2``'s launch of body ``variant`` on n lanes over ``sms`` SMs.
+    ``astore`` keeps a ring of ``store_rows`` rows of 8 f32 a lane (32 B a
+    row) and its gamma stages (16 B a lane and stage,
+    ``PROBE2_STORE_STAGES``) in shared memory, so a block holds at most
+    232,448 / (32 · store_rows + 208) lanes (256 at most), and one SM as
+    many such blocks as its 228 KB hold.  It runs one block on each of
+    them, all resident, block b taking tiles b, b + blocks, ...; its tiles
+    are as wide as they must be for the fewest rounds, and no wider, so that
+    the rounds come out even (110 lanes at the probe's 86,528 lanes and 56
+    rows: 787 tiles on 132 blocks, one an SM, 6 rounds).  Raises
+    ``ValueError`` when one lane does not fit a block (store_rows > 7,257):
+    there is no device-memory store to fall back to.  The other bodies run a
+    block a tile: ``full`` tiles of one warp (2,704 at the probe's shape: 20
+    or 21 an SM, where 128-lane blocks put 6 on 16 SMs against a mean of
+    5.12), the rest of 128 lanes.  ``per_sm`` counts shared memory,
+    threads and the block limit, not registers (``full``'s launch bounds
+    keep 21 of its blocks an SM, one round at the probe's shape)."""
+    if n < 0 or store_rows < 1 or sms < 1:
+        raise ValueError(f"probe2_geometry: n={n}, store_rows={store_rows}, sms={sms}")
+
+    def per_sm(lanes: int, smem: int) -> int:
+        warps = -(-lanes // 32)
+        by_smem = SM_SMEM // (smem + BLOCK_RESERVED_SMEM) if smem else SM_BLOCKS
+        return min(by_smem, SM_THREADS // (32 * warps), SM_BLOCKS)
+
+    if variant == "astore":
+        per_lane = 32 * store_rows + 16 * PROBE2_STORE_STAGES
+        if per_lane > ONE_BLOCK_PER_SM_SMEM:
+            raise ValueError(f"probe2 astore: a ring of {store_rows} rows takes "
+                             f"{per_lane} B a lane with its gamma stages, above a "
+                             f"block's {ONE_BLOCK_PER_SM_SMEM} B of shared memory")
+        widest = min(PROBE2_MAX_LANES, ONE_BLOCK_PER_SM_SMEM // per_lane)
+        k = per_sm(widest, widest * per_lane)
+        rounds = max(1, -(-(-(-n // widest)) // (sms * k)))
+        lanes = max(1, -(-n // (sms * k * rounds)))
+        smem = lanes * per_lane
+    elif variant in PROBE2_VARIANTS:
+        lanes, smem = (PROBE2_FULL_LANES if variant == "full" else PROBE2_THREADS), 0
+    else:
+        raise ValueError(f"unknown probe2 variant {variant!r}")
+    tiles = -(-n // lanes)
+    k = per_sm(lanes, smem)
+    blocks = max(1, min(tiles, sms * k) if variant == "astore" else tiles)
+    return Probe2Geometry(lanes, smem, tiles, blocks, k, -(-tiles // blocks))
+
+
+# each probe2 body's last launch on the card: {variant: Probe2Geometry}
+probe2_launched: dict[str, Probe2Geometry] = {}
+
+
 def probe2(variant: str, gs, gp, a0, n_steps: int, out_rows: int,
            store_rows: int) -> torch.Tensor:
     """turbo_probe2's body ``variant`` over gs, gp (rows, N) f32 (the probe
     passes one array as both) and a0 (8, N) f32 → (out_rows, N), of which
     only row 0 is written.  n_steps radix-4 steps read rows 0..2·n_steps-1;
-    ``astore`` stores alpha into a (store_rows, 8, N) device scratch."""
+    ``astore`` stores alpha before each step into row i % store_rows of a
+    ring a lane in shared memory, which nothing reads.  On the card the
+    launch is ``probe2_geometry``'s (which raises where a ring does not
+    fit), kept in ``probe2_launched``; the plain version takes any ring."""
     if variant not in PROBE2_VARIANTS:
         raise ValueError(f"unknown probe2 variant {variant!r}")
     rows, n = gs.shape
@@ -289,16 +369,14 @@ def probe2(variant: str, gs, gp, a0, n_steps: int, out_rows: int,
     args = (variant, gs, gp, a0, n_steps, out_rows, store_rows)
     if not _check("probe2", (gs, gp, a0), torch.float32, ((rows, n), (rows, n), (8, n))):
         return probe2_ref(*args)
+    sms = torch.cuda.get_device_properties(gs.device).multi_processor_count
+    geo = probe2_geometry(variant, n, store_rows, sms)  # raises where a ring cannot fit
     out = gs.new_empty((out_rows, n))
-    astore = gs.new_empty((store_rows if variant == "astore" else 1, 8, n))
-    _launch(f"probe2_{variant}", "probe_acs", "probe2", 5, 4, gs, gp, a0, out, astore,
-            n, n_steps, store_rows, PROBE2_VARIANTS.index(variant))
+    _launch(f"probe2_{variant}", "probe_acs", "probe2", 4, 7, gs, gp, a0, out, n, n_steps,
+            store_rows, PROBE2_VARIANTS.index(variant), geo.lanes, geo.smem_bytes,
+            geo.blocks)
+    probe2_launched[variant] = geo
     return out
-
-
-# the H100's largest dynamic shared memory a block may ask for (227 KB):
-# more than half an SM's 228 KB, so one block per SM
-ONE_BLOCK_PER_SM_SMEM = 232448
 
 
 def probe_empty(inputs, out_rows: int, threads: int = 1024,

@@ -386,16 +386,36 @@ def _rand(device, shape, seed, scale=4.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 
-@pytest.mark.parametrize("variant", probes.PROBE2_VARIANTS)
-def test_probe2_kernels_match_plain(cuda_device, variant):
-    n, steps = 5000, 72
+# (variant, lanes, store rows): every body at 5,000 lanes and the probe's 56
+# rows; full and astore also at one lane and at 20,001 (a ragged last tile;
+# astore's 264 tiles of 76 lanes in 2 rounds of its 132 blocks on an H100),
+# astore at rings of 1 and 72 rows (72 steps: no wrap)
+PROBE2_CASES = ([(v, 5000, 56) for v in probes.PROBE2_VARIANTS]
+                + [(v, n, 56) for v in ("full", "astore") for n in (1, 20001)]
+                + [("astore", 5000, rows) for rows in (1, 72)])
+
+
+@pytest.mark.parametrize("variant,n,store_rows", PROBE2_CASES, ids=[
+    v if (n, rows) == (5000, 56) else f"{v}-n{n}-rows{rows}" for v, n, rows in PROBE2_CASES])
+def test_probe2_kernels_match_plain(cuda_device, variant, n, store_rows):
+    steps = 72
     g, a0 = _rand(cuda_device, (176, n), 1), _rand(cuda_device, (8, n), 2, 1.0)
     before = turbo_map.launches[f"probe2_{variant}"]
-    got = probes.probe2(variant, g, g, a0, steps, 112, 56)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = probes.probe2(variant, g, g, a0, steps, 112, store_rows)
     torch.cuda.synchronize()
     assert turbo_map.launches[f"probe2_{variant}"] == before + 1
-    want = probes.probe2_ref(variant, g, g, a0, steps, 112, 56)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if (variant, n) == ("astore", 20001) and sms <= 132:
+        assert probes.probe2_launched[variant].rounds > 1
+    # the output is the launch's one allocation: astore's ring is on chip
+    assert torch.cuda.max_memory_allocated() - base <= 4 * got.numel() + 1024
+    want = probes.probe2_ref(variant, g, g, a0, steps, 112, store_rows)
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), atol=1e-3, rtol=0)
+    if variant in ("full", "astore"):
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
 
 
 @pytest.mark.parametrize("threads,smem", [(128, 0), (1024, 0),

@@ -10,9 +10,11 @@ barrier, and a block-cooperative one for sources that call
 coroutines (``ucontext``) on one OS thread, each until it reaches a barrier
 or ends; the barrier releases when every thread of the block waits at it,
 and a thread that ends while others wait fails the launch (an early exit
-before a barrier).  The block's dynamic shared memory (``extern
-__shared__``) is one buffer, filled with NaN bytes before each block, and
-``cuda_pipeline.h``'s asynchronous copies are synchronous ones.  The C entry points that the
+before a barrier).  Under either launch the block's dynamic shared memory
+(``extern __shared__``) is one buffer of the launch's dynamic bytes, filled
+with NaN bytes before each block, which ``host_shared_memory`` shows after
+the launch (the last block's), and ``cuda_pipeline.h``'s asynchronous
+copies are synchronous ones.  The C entry points that the
 wrappers of ``ops/cuda/turbo_map.py`` and ``ops/cuda/probes.py`` call through ctypes then run on CPU
 buffers, so the kernels' indexing, schedules and arithmetic are checked
 here; only the card (tests/test_torch_cuda.py, chip_smoke.py) shows that
@@ -90,27 +92,46 @@ static inline int cudaFuncSetAttribute(T, int, int) { return cudaSuccess; }
 static inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 template <class T>
 static inline T __ldg(const T* p) { return *p; }
+// A block's dynamic shared memory: the launch's bytes, NaN before each block.
+static std::vector<uint4> host_shared_buf;
+static void* host_smem = nullptr;
+static size_t host_smem_bytes = 0;
+static inline void* host_shared() { return host_smem; }
+static void host_shared_init(size_t smem) {
+  host_shared_buf.assign(smem / sizeof(uint4) + 1, uint4{});
+  host_smem = host_shared_buf.data();
+  host_smem_bytes = smem;
+}
+static void host_shared_nan() {
+  memset(host_shared_buf.data(), 0xff, host_shared_buf.size() * sizeof(uint4));
+}
+// The last launch's shared memory as its last block left it, and its bytes.
+extern "C" const void* host_shared_memory(long long* bytes) {
+  *bytes = (long long)host_smem_bytes;
+  return host_smem;
+}
 template <class F>
-static void host_launch(dim3 grid, dim3 block, F kernel) {
+static void host_launch(dim3 grid, dim3 block, size_t smem, F kernel) {
   gridDim = grid;
   blockDim = block;
+  host_shared_init(smem);
   for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx)
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      host_shared_nan();
       for (unsigned tx = 0; tx < block.x; ++tx) {
         blockIdx = dim3(bx, by);
         threadIdx = dim3(tx);
         kernel();
       }
+    }
 }
 // The block-cooperative launch: the threads of a block as coroutines.
 static ucontext_t host_scheduler;
 static ucontext_t* host_threads = nullptr;  // null outside host_launch_block
 static unsigned char* host_waiting = nullptr;
 static unsigned host_current = 0;
-static void* host_smem = nullptr;
 static void (*host_body)(void*) = nullptr;
 static void* host_body_arg = nullptr;
-static inline void* host_shared() { return host_smem; }
 static inline void __syncwarp(unsigned = 0xffffffffu) {}  // compiled, never run
 static inline void __syncthreads() {
   if (!host_threads) abort();  // a barrier under the sequential launch
@@ -124,18 +145,17 @@ static void host_launch_block(dim3 grid, dim3 block, size_t smem, F kernel) {
   const unsigned nt = block.x;
   std::vector<ucontext_t> ctx(nt);
   std::vector<unsigned char> waiting(nt), done(nt), stacks(nt * stack);
-  std::vector<uint4> shared(smem / sizeof(uint4) + 1);
   gridDim = grid;
   blockDim = block;
   host_body = [](void* k) { (*static_cast<F*>(k))(); };
   host_body_arg = &kernel;
   host_threads = ctx.data();
   host_waiting = waiting.data();
-  host_smem = shared.data();
+  host_shared_init(smem);
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       blockIdx = dim3(bx, by);
-      memset(shared.data(), 0xff, shared.size() * sizeof(uint4));
+      host_shared_nan();
       for (unsigned t = 0; t < nt; ++t) {
         getcontext(&ctx[t]);
         ctx[t].uc_stack.ss_sp = &stacks[t * stack];
@@ -245,7 +265,7 @@ static inline __nv_bfloat162 __hmax2(__nv_bfloat162 a, __nv_bfloat162 b) {
 """
 
 # kernel<<<grid, block, smem, stream>>>(args);  ->
-#   host_launch(grid, block, [&] { kernel(args); });  or, with a barrier,
+#   host_launch(grid, block, smem, [&] { kernel(args); });  or, with a barrier,
 #   host_launch_block(grid, block, smem, [&] { kernel(args); });
 _LAUNCH = re.compile(
     r"([\w:]+(?:<[^<>;]*>)?)<<<\s*([^,]+?)\s*,\s*([^,]+?)\s*,\s*([^,]+?)\s*,[^>]*>>>"
@@ -261,7 +281,7 @@ _ENTRIES = {"turbo_map_windowed": ("turbo_windowed", 5, 8),
             "turbo_sweep": ("turbo_sweep", 6, 6),
             "turbo_emit": ("turbo_emit", 5, 2),
             "turbo_map_v3": ("turbo_windowed", 5, 8),
-            "probe2": ("probe_acs", 5, 4),
+            "probe2": ("probe_acs", 4, 7),
             "probe6_full": ("probe_acs", 6, 2),
             "probe6_bf16": ("probe_acs", 6, 2),
             "probe6_skel": ("probe_acs", 4, 2),
@@ -289,7 +309,7 @@ def _host_build(cxx, out, name, lib, flags=()):
     into ``out / lib``; returns the compiler's process."""
     src = (CSRC / f"{name}.cu").read_text()
     launch = (r"host_launch_block(\2, \3, \4, [&] { \1(\5); });"
-              if "__syncthreads" in src else r"host_launch(\2, \3, [&] { \1(\5); });")
+              if "__syncthreads" in src else r"host_launch(\2, \3, \4, [&] { \1(\5); });")
     src = _EXTERN_SHARED.sub(r"\1* \2 = static_cast<\1*>(host_shared());", src)
     src, n_launch = _LAUNCH.subn(launch, src)
     assert n_launch, f"{name}.cu: no kernel launch found"
@@ -326,6 +346,11 @@ def host_kernels(tmp_path_factory):
         fn.argtypes = [ctypes.c_int] * n_int
         fn.restype = ctypes.c_longlong
         fns[symbol] = fn
+    # probe_acs's shared memory after a launch (the last block's)
+    fn = ctypes.CDLL(str(out / "libprobe_acs.so")).host_shared_memory
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_void_p
+    fns["probe_acs_shared"] = fn
     return fns
 
 
@@ -687,20 +712,99 @@ def _probe_inputs(shape, seed, scale=4.0):
     return torch.as_tensor((rng.standard_normal(shape) * scale).astype(np.float32))
 
 
+def _probe2_host(host_kernels, variant, n, sms, store_rows=8):
+    """probe2's host build of ``variant`` at n lanes, 10 steps and a ring of
+    ``store_rows`` rows, launched as ``probe2_geometry`` gives it for ``sms``
+    SMs; its row 0, the plain version's, the geometry and the ring that the
+    last block left in its shared memory (``store_rows``, 8, lanes)."""
+    steps, out_rows = 10, 16
+    g, a0 = _probe_inputs((24, n), 2), _probe_inputs((8, n), 3, 1.0)
+    geo = probes.probe2_geometry(variant, n, store_rows, sms)
+    out = g.new_empty((out_rows, n))
+    _run(host_kernels["probe2"], g, g, a0, out, n, steps, store_rows,
+         probes.PROBE2_VARIANTS.index(variant), geo.lanes, geo.smem_bytes, geo.blocks)
+    want = probes.probe2_ref(variant, g, g, a0, steps, out_rows, store_rows)
+    size = ctypes.c_longlong()
+    at = host_kernels["probe_acs_shared"](ctypes.byref(size))
+    assert size.value == geo.smem_bytes
+    ring = None
+    if variant == "astore":  # after the gamma stages, [row][half][lane] float4
+        smem = np.ctypeslib.as_array((ctypes.c_float * (size.value // 4)).from_address(at))
+        ring = smem[4 * probes.PROBE2_STORE_STAGES * geo.lanes:]
+        ring = torch.as_tensor(ring.reshape(store_rows, 2, geo.lanes, 4).transpose(
+            0, 1, 3, 2).reshape(store_rows, 8, geo.lanes).copy())  # (row, state, lane)
+    return out[0], want[0], geo, ring, (g, a0, steps)
+
+
+def _ring_holds_alpha(ring, geo, n, g, a0, steps):
+    """The last block's ring: each thread's row r holds alpha before the
+    last step i with i % rows == r of the last tile that thread ran (block
+    b runs tiles b, b + blocks, ..., a thread only those where its lane is
+    below n); rows no step wrote, and threads that ran no tile, stay NaN."""
+    rows, b = ring.shape[0], geo.blocks - 1
+    for t in range(geo.lanes):
+        ran = [k for k in range(b, geo.tiles, geo.blocks) if k * geo.lanes + t < n]
+        if not ran:
+            assert torch.isnan(ring[:, :, t]).all()
+            continue
+        lane = ran[-1] * geo.lanes + t
+        a, want = a0[:, lane], {}
+        for i in range(steps):
+            want[i % rows] = a
+            a = probes._probe2_acs(a, g[2 * i, lane], g[2 * i, lane], g[2 * i + 1, lane],
+                                   g[2 * i + 1, lane])
+        for r in range(rows):
+            if r in want:
+                _close(ring[r, :, t], want[r])
+            else:
+                assert torch.isnan(ring[r, :, t]).all()
+
+
 @pytest.mark.parametrize("variant", probes.PROBE2_VARIANTS)
 def test_probe2_source_matches_plain(host_kernels, variant):
-    n, steps, out_rows, store_rows = 37, 10, 16, 8
-    g, a0 = _probe_inputs((24, n), 2), _probe_inputs((8, n), 3, 1.0)
-    out, astore = g.new_empty((out_rows, n)), g.new_empty((store_rows, 8, n))
-    _run(host_kernels["probe2"], g, g, a0, out, astore, n, steps, store_rows,
-         probes.PROBE2_VARIANTS.index(variant))
-    want = probes.probe2_ref(variant, g, g, a0, steps, out_rows, store_rows)
-    np.testing.assert_allclose(out[0].numpy(), want[0].numpy(), atol=1e-3, rtol=0)
-    if variant == "astore":  # the store holds alpha before steps 8, 9 (slots 0, 1)
-        a = a0.clone()
-        for i in range(9):
-            a = probes._probe2_acs(a, g[2 * i], g[2 * i], g[2 * i + 1], g[2 * i + 1])
-        _close(astore[1], a)
+    n = 37
+    got, want, geo, ring, inputs = _probe2_host(host_kernels, variant, n, probes.SMS)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3, rtol=0)
+    if variant in ("full", "astore"):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if variant == "astore":  # slot 1 holds alpha before step 9, slots 2-7 before 2-7
+        _ring_holds_alpha(ring, geo, n, *inputs)
+    else:
+        assert ring is None
+
+
+def test_probe2_astore_ring_spans_tiles(host_kernels):
+    # two SMs, a ring of 900 rows (29,008 B a lane with the stages): tiles of
+    # 8 lanes, 38 of them on 2 blocks, 19 rounds each, the last tile ragged
+    # (5 lanes), so the last block's threads end on different tiles
+    n = 301
+    got, want, geo, ring, inputs = _probe2_host(host_kernels, "astore", n, 2, 900)
+    assert (geo.lanes, geo.tiles, geo.blocks, geo.rounds) == (8, 38, 2, 19) and n % geo.lanes
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    _ring_holds_alpha(ring, geo, n, *inputs)
+    astore = probes.PROBE2_VARIANTS.index("astore")
+    # the entry takes probe2_geometry's shared bytes and no fewer, also at
+    # n = 0 (where it launches nothing)
+    fn, null = host_kernels["probe2"], None
+    ask = (0, 10, 900, astore)
+    assert fn(null, null, null, null, *ask, geo.lanes, geo.smem_bytes, 1, null) == 0
+    assert fn(null, null, null, null, *ask, geo.lanes, geo.smem_bytes - 1, 1, null)
+    assert fn(null, null, null, null, *ask, geo.lanes, geo.smem_bytes, 0, null)
+    # more blocks than tiles
+    assert fn(null, null, null, null, n, *ask[1:], geo.lanes, geo.smem_bytes, 39, null)
+    # astore's gamma offsets are 32-bit: 2 · n_steps · n at 2^31 is refused
+    assert fn(null, null, null, null, 1 << 20, 1 << 10, 900, astore, geo.lanes,
+              geo.smem_bytes, 2, null)
+    assert fn(null, null, null, null, 0, 10, 8, 0, 64, 0, 1, null)  # full's blocks are a warp
+    # the largest ring, one lane's 7,257 rows, fits; 7,258 rows do not
+    for rows, lanes in ((7257, 1), (7258, 1)):
+        most = probes.ONE_BLOCK_PER_SM_SMEM
+        took = fn(null, null, null, null, 0, 10, rows, astore, lanes, most, 1, null) == 0
+        assert took == (rows == 7257)
+        if took:
+            smem = probes.probe2_geometry("astore", 1, rows).smem_bytes
+            assert fn(null, null, null, null, 0, 10, rows, astore, lanes, smem, 1, null) == 0
+            assert fn(null, null, null, null, 0, 10, rows, astore, lanes, smem - 1, 1, null)
 
 
 @pytest.mark.parametrize("threads,smem", [(16, 0), (32, probes.ONE_BLOCK_PER_SM_SMEM)])

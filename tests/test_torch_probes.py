@@ -283,6 +283,29 @@ def test_probe_wrappers_refuse_bad_inputs():
         probes.probe_empty([g, g, g], 8)
 
 
+def test_probe2_geometry_fits_the_ring_or_raises():
+    # the probe's shape: 56 rows of 32 B and 13 gamma stages of 16 B a lane;
+    # 110 lanes a tile (219,120 of 232,448 B), one block an SM, 787 tiles on
+    # 132 blocks in 6 even rounds
+    geo = probes.probe2_geometry("astore", 86528, 56)
+    assert geo == (110, 110 * (56 * 32 + 13 * 16), 787, 132, 1, 6)
+    assert geo.smem_bytes <= probes.ONE_BLOCK_PER_SM_SMEM
+    assert geo.tiles * geo.lanes >= 86528 > (geo.tiles - 1) * geo.lanes
+    # 20,001 lanes: 2 rounds of 76-lane tiles, the last tile ragged
+    assert probes.probe2_geometry("astore", 20001, 56) == (76, 76 * 2000, 264, 132, 1, 2)
+    # the largest ring a block holds is one lane's 7,257 rows; no fallback
+    assert probes.probe2_geometry("astore", 10, 7257).lanes == 1
+    with pytest.raises(ValueError):
+        probes.probe2_geometry("astore", 10, 7258)
+    # the plain version, on CPU tensors, takes any ring
+    g, a0 = torch.zeros((24, 16)), torch.zeros((8, 16))
+    assert probes.probe2("astore", g, g, a0, 10, 16, 7258).shape == (16, 16)
+    # full: tiles of one warp, a block each, all 2,704 resident at once; the
+    # rest 128 lanes
+    assert probes.probe2_geometry("full", 86528, 56)[:4] == (32, 0, 2704, 2704)
+    assert probes.probe2_geometry("fixedrow", 86528, 56)[:4] == (128, 0, 676, 676)
+
+
 # --- the work behind each kernel's bound -----------------------------------------
 
 
